@@ -1,0 +1,600 @@
+"""Rendering orchestration: the proxy inference path.
+
+Port of the inference half of ``nerf_texture_tpu/render/renderer.py``.
+A frame renders as:
+
+  prepass (once per occupancy grid, ``PrepassState``: tight AABB, salt
+  filter, dilated occupancy, proxy corner table) ->
+  block prepass (one ray per BxB pixel block against the dilated grid,
+  tau carve + window refinement under the proxy density) ->
+  live compaction (hit blocks first) -> ONE host sync for the live
+  count -> a plain loop over chunks of live rays:
+  proxy sweep -> proxy_select_cdf -> field on the cap survivors ->
+  exact composite -> scatter into the packed frame buffer.
+
+The JAX module's ``jit`` programs, ``lax.while_loop`` and
+``frame_one_program`` are TPU dispatch machinery; here they are one
+Python loop, and its last chunk is simply shorter (no padding).  The
+``id()``-keyed prepass and corner-table caches become the explicit
+``PrepassState`` that the caller builds once per grid.
+
+Ported: the single-round proxy path with inverse-CDF placement
+(``proxy_samples=0``, ``proxy_pallas``, ``infer_cdf``), without anchors
+or deferred shading.  Other branches raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from ..data.rays import get_rays, rotate
+from ..ops.marching import near_far_from_aabb
+from ..ops.proxy_select import proxy_select_cdf
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Every field of the JAX RenderConfig, so configurations convert;
+    see the JAX module for what each one does.  TPU-only fields
+    (``frame_one_program``, ``proxy_bf16``) are accepted and ignored."""
+
+    bound: float = 1.0
+    cascades: int = 1
+    grid_size: int = 128
+    min_near: float = 0.2
+    density_scale: float = 1.0
+    density_thresh: float = 0.01
+    dt_gamma: float = 0.0
+    max_steps: int = 1024
+    max_samples_train: int = 256
+    max_samples_infer: int = 512
+    ray_chunk: int = 8192
+    pool_mean_samples: int = 64
+    pool_mean_samples_infer: int = 24
+    march_steps_infer: int = 0
+    infer_color_cap: int = 8
+    infer_w_eps: float = 1e-4
+    prepass_block: int = 4
+    prepass_margin_steps: float = 1.0
+    prepass_thresh_scale: float = 0.5
+    prepass_min_component: int = 8
+    prepass_strong_alpha: float = 0.01
+    prepass_tau_cull: float = 3e-3
+    prepass_tau_samples: int = 32
+    anchor_per_sample: bool = True
+    frame_one_program: bool = True
+    deferred: bool = False
+    infer_mode: str = "proxy"
+    proxy_samples: int = 32
+    proxy_refined: int = 24
+    proxy_pallas: bool = True
+    infer_cdf: bool = True
+    proxy_bf16: bool = False
+
+
+# ---------------------------------------------------------------------------
+# proposal-style proxy rendering
+# ---------------------------------------------------------------------------
+
+def density_corner_table(density: torch.Tensor,
+                         grid_size: int) -> torch.Tensor:
+    """[H^3] (or [cascades, H^3], cascade 0 used) cell-center densities ->
+    [H^3, 8] table whose row r holds the 2x2x2 neighbourhood of cell r
+    (edge-clamped at the +1 borders); negative cells clamp to 0."""
+    H = grid_size
+    if density.dim() == 2:
+        density = density[0]
+    d = torch.clamp(density.reshape(H, H, H), min=0.0)
+    ar = torch.arange(H, device=d.device)
+    nxt = torch.clamp(ar + 1, max=H - 1)
+    rows = []
+    for ix in (ar, nxt):
+        for iy in (ar, nxt):
+            for iz in (ar, nxt):
+                rows.append(d[ix][:, iy][:, :, iz].reshape(-1))
+    return torch.stack(rows, dim=-1)                    # [H^3, 8]
+
+
+def _proxy_sigma(dens8: torch.Tensor, rays_o: torch.Tensor,
+                 rays_d: torch.Tensor, ts: torch.Tensor, grid_size: int,
+                 bound: float) -> torch.Tensor:
+    """Trilinear proxy density at o + t d for an [N, K] t-grid."""
+    H = grid_size
+    inv2b = 1.0 / (2.0 * bound)
+
+    def axis(ax):
+        p = rays_o[:, ax:ax + 1] + ts * rays_d[:, ax:ax + 1]
+        g = (p * inv2b + 0.5) * H - 0.5
+        b = torch.clamp(torch.floor(g), 0.0, H - 2.0)
+        return b.to(torch.int64), g - b
+
+    bx, fx = axis(0)
+    by, fy = axis(1)
+    bz, fz = axis(2)
+    base = (bx * H + by) * H + bz                        # [N, K]
+    rows = dens8[base.reshape(-1)]                       # [N*K, 8]
+    wx = torch.stack([1.0 - fx, fx], -1).reshape(-1, 2)
+    wy = torch.stack([1.0 - fy, fy], -1).reshape(-1, 2)
+    wz = torch.stack([1.0 - fz, fz], -1).reshape(-1, 2)
+    w = (wx[:, :, None, None] * wy[:, None, :, None]
+         * wz[:, None, None, :]).reshape(-1, 8)
+    return torch.sum(rows * w, -1).reshape(ts.shape)
+
+
+def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
+                      cfg: RenderConfig, *, bg_color=1.0, select_cdf=None):
+    """Proposal-style inference over each ray's prepass span [nears,
+    fars]: K proxy densities -> ``cap`` inverse-CDF survivors -> the field
+    on the survivors only -> exact composite.  Rays without a span
+    composite to pure background.
+
+    ``select_cdf`` replaces ``proxy_select_cdf`` (for testing the kernel
+    against its plain version); None uses the kernel wrapper."""
+    if cfg.proxy_samples != 0 or not cfg.proxy_pallas or not cfg.infer_cdf:
+        raise NotImplementedError(
+            "render_rays_proxy: only single-round inverse-CDF placement "
+            "(proxy_samples=0, proxy_pallas=True, infer_cdf=True) is "
+            "ported; two-round proxy and top-k selection wait for ROADMAP "
+            "Queue 2, item 2 (proxy_select)")
+    select_cdf = proxy_select_cdf if select_cdf is None else select_cdf
+    cap, K = cfg.infer_color_cap, cfg.proxy_refined
+    t_lo, t_hi = nears, fars
+    span = torch.clamp(t_hi - t_lo, min=0.0)
+    frac = (torch.arange(K, dtype=rays_o.dtype, device=rays_o.device)
+            + 0.5) / K
+    ts = t_lo[:, None] + span[:, None] * frac
+    sig_p = _proxy_sigma(dens8, rays_o, rays_d, ts, cfg.grid_size,
+                         cfg.bound)
+    cap_eff = min(cap, K)
+    ts2, dt2, valid2 = select_cdf(ts, sig_p, t_lo, t_hi, cap=cap_eff,
+                                  w_eps=float(cfg.infer_w_eps))
+    return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, ts2, dt2,
+                       valid2, cap_eff, cfg, bg_color=bg_color)
+
+
+def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, ts2, dt2, valid2,
+                cap_eff: int, cfg: RenderConfig, *, bg_color):
+    """Exact field eval + front-to-back composite over the [N, cap]
+    survivor slots, each integrated over its segment dt2 (under
+    inverse-CDF placement no dropped sample's optical depth is added:
+    the JAX code's skip2 is zero there)."""
+    N = rays_o.shape[0]
+    x2 = torch.clamp(rays_o[:, None, :] + ts2[..., None] * rays_d[:, None, :],
+                     -cfg.bound, cfg.bound)              # [N, cap, 3]
+    d2 = rays_d[:, None, :].expand(x2.shape)
+    out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3))
+    if not isinstance(out, tuple):
+        raise ValueError("proxy mode needs field_fn -> (sigma, rgb)")
+    sigma2 = out[0].reshape(N, cap_eff) * cfg.density_scale
+    rgb2 = out[1].reshape(N, cap_eff, 3)
+
+    sdt2 = torch.where(valid2, sigma2 * dt2, 0.0)
+    cs2 = torch.cumsum(sdt2, dim=-1)
+    trans2 = torch.exp(-(cs2 - sdt2))
+    w2 = torch.where(valid2, trans2 * (1.0 - torch.exp(-sdt2)), 0.0)
+
+    image = torch.sum(w2[..., None] * rgb2, dim=1)       # [N, 3]
+    wsum = torch.sum(w2, dim=-1)
+    dep = torch.sum(w2 * ts2, dim=-1)
+    image = image + (1.0 - wsum)[..., None] * bg_color
+    denom = torch.where(fars > nears, fars - nears, 1.0)
+    depth = torch.clamp(dep - nears, min=0.0) / denom
+    return {"image": image, "depth": depth, "weights_sum": wsum,
+            "counts": torch.sum(valid2.to(torch.int32), -1)}
+
+
+# ---------------------------------------------------------------------------
+# prepass: per-grid state (host) and the per-frame block prepass (device)
+# ---------------------------------------------------------------------------
+
+def occupied_aabb(occ, grid_size: int, cascades: int, bound: float,
+                  margin: float = 0.0):
+    """Tight world AABB [6] (np f32) of the occupied cells, clamped to
+    [-bound, bound]; None when nothing is occupied (host-side)."""
+    g = np.asarray(occ).reshape(cascades, grid_size, grid_size, grid_size)
+    lo = np.full(3, np.inf)
+    hi = np.full(3, -np.inf)
+    for lvl in range(cascades):
+        idx = np.argwhere(g[lvl])
+        if idx.size == 0:
+            continue
+        mb = min(2.0 ** lvl, bound)
+        lo = np.minimum(lo, (idx.min(0) / grid_size * 2.0 - 1.0) * mb)
+        hi = np.maximum(hi, ((idx.max(0) + 1) / grid_size * 2.0 - 1.0) * mb)
+    if not np.isfinite(lo).all():
+        return None
+    return np.concatenate([np.clip(lo - margin, -bound, bound),
+                           np.clip(hi + margin, -bound, bound)]
+                          ).astype(np.float32)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis, 0 when none (what
+    jnp.argmax over bool returns)."""
+    S = mask.shape[-1]
+    ar = torch.arange(S, device=mask.device)
+    first = torch.amin(torch.where(mask, ar, S), dim=-1)
+    return torch.where(first == S, 0, first)
+
+
+def _occ_ray_hits(o, d, occ_dil, aabb, bound: float, min_near: float,
+                  grid_size: int, n_steps: int = 64,
+                  margin_steps: float = 0.0):
+    """Coarse ray-vs-occupancy prepass: n_steps points along each ray's
+    [near, far] span in the AABB, tested against the DILATED occupancy
+    grid (so a thin shell cannot fall between samples).
+
+    Returns (hit [n] bool, t0 [n], t1 [n]): conservative entry/exit of the
+    occupied span along each live ray (0 on misses)."""
+    H = grid_size
+    inv2b = H / (2.0 * bound)
+    nears, fars = near_far_from_aabb(o, d, aabb, min_near)
+    live = fars > nears
+    step = (fars - nears) / n_steps
+    frac = (torch.arange(n_steps, dtype=o.dtype, device=o.device)
+            + 0.5) / n_steps
+    t = nears[:, None] + (fars - nears)[:, None] * frac[None]
+
+    def cl(ax):
+        # truncation toward zero, as the JAX .astype(int32)
+        v = ((o[:, ax:ax + 1] + t * d[:, ax:ax + 1] + bound)
+             * inv2b).to(torch.int32)
+        return torch.clamp(v, 0, H - 1).to(torch.int64)
+
+    flat = (cl(0) * H + cl(1)) * H + cl(2)
+    occ_s = occ_dil[flat] > 0                             # [n, S]
+    hit = live & torch.any(occ_s, dim=-1)
+    first = _first_true(occ_s).to(o.dtype)
+    last = n_steps - 1 - _first_true(torch.flip(occ_s, [-1])).to(o.dtype)
+    t0 = torch.where(hit, torch.maximum(
+        nears + (first - margin_steps) * step, nears), 0.0)
+    t1 = torch.where(hit, nears + (last + 1.0 + margin_steps) * step, 0.0)
+    return hit, t0, t1
+
+
+def _prepass_salt_filter(occ_np, grid_size: int, min_cells: int,
+                         strong_np=None):
+    """Morphological opening of the binary PREPASS occupancy (host,
+    scipy): components of the eroded grid smaller than ``min_cells`` go,
+    3 rounds of reconstruction within the grid re-attach the shaved
+    margin, and ``strong_np`` cells are always kept.  Below grid 64 the
+    erosion is skipped (it would eat legitimately thin shells)."""
+    from scipy import ndimage
+
+    S = np.ones((3, 3, 3), np.uint8)
+    g = occ_np.reshape(grid_size, grid_size, grid_size) > 0
+    core = ndimage.binary_erosion(g, S) if grid_size >= 64 else g
+    labels, n = ndimage.label(core, structure=S)
+    if n > 1:
+        sizes = np.bincount(labels.reshape(-1))
+        sizes[0] = 0
+        core = (sizes >= min_cells)[labels] & core
+    keep = core
+    for _ in range(3):
+        keep = ndimage.binary_dilation(keep, S) & g
+    if strong_np is not None:
+        keep |= strong_np.reshape(g.shape) & g
+    return keep.astype(np.uint8).reshape(occ_np.shape)
+
+
+def _dilate_occ(occ_np, grid_size: int, cascades: int):
+    """Host-side 3^3 max-pool of cascade 0 (with wrap-around at the
+    borders, as the JAX version)."""
+    g = occ_np.reshape(cascades, grid_size, grid_size, grid_size)[0]
+    d = g.copy()
+    for ax in range(3):
+        d = np.maximum(d, np.roll(d, 1, axis=ax))
+        d = np.maximum(d, np.roll(d, -1, axis=ax))
+    return d.reshape(-1)
+
+
+def _occ_prepass_arrays(occ, cfg: RenderConfig, density=None):
+    """(aabb [6] np or None, dilated occ np or None) of a grid's ``occ``
+    and ``density`` tensors (host-side numpy and scipy).
+
+    With the density grid, the PREPASS occupancy uses the stronger
+    threshold min(max(march_thresh, prepass_thresh_scale * mean),
+    4 march_thresh) and the salt filter, which keep unconverged
+    far-field density spikes from making every ray live; the march
+    threshold itself stays min(mean, density_thresh)."""
+    occ_np = occ.cpu().numpy()
+    if density is not None and cfg.cascades == 1:
+        dens0_np = density[0].cpu().numpy()
+        # the grid's own mean, as the JAX render_image computes it
+        mean = float(np.mean(np.clip(dens0_np, 0.0, None)))
+        march_thresh = min(mean, cfg.density_thresh)
+        pre_thresh = min(max(march_thresh, cfg.prepass_thresh_scale * mean),
+                         4.0 * march_thresh)
+        occ_np = (dens0_np > pre_thresh).astype(np.uint8)
+        cell = 2.0 * cfg.bound / cfg.grid_size
+        strong_np = dens0_np > max(cfg.prepass_strong_alpha / cell,
+                                   pre_thresh)
+    else:
+        strong_np = None
+    if cfg.prepass_min_component > 1 and cfg.cascades == 1:
+        occ_np = _prepass_salt_filter(occ_np, cfg.grid_size,
+                                      cfg.prepass_min_component,
+                                      strong_np=strong_np)
+    aabb_np = occupied_aabb(occ_np, cfg.grid_size, cfg.cascades, cfg.bound,
+                            margin=2.0 * cfg.bound / cfg.grid_size)
+    occ_dil = (_dilate_occ(occ_np, cfg.grid_size, 1)
+               if aabb_np is not None and cfg.cascades == 1 else None)
+    return aabb_np, occ_dil
+
+
+def _tau_samples(cfg: RenderConfig, aabb_np) -> int:
+    """Tau-carve sample count scaled to the occupied AABB's diagonal
+    (worst-case spacing <= 1.5 cells), quantised to 32s, in [32, 160]."""
+    diag = float(np.linalg.norm(aabb_np[3:] - aabb_np[:3]))
+    diag_cells = diag * cfg.grid_size / (2.0 * cfg.bound)
+    return int(min(160, max(cfg.prepass_tau_samples,
+                            32 * math.ceil(diag_cells / 1.5 / 32))))
+
+
+@dataclasses.dataclass
+class PrepassState:
+    """What the renderer derives from one occupancy grid, built once per
+    grid (the grid changes only on a refresh; frames render many times).
+
+    aabb_np / aabb: tight occupied AABB (np [6] and on the device), None
+      when nothing is occupied (pure background);
+    occ_dil: [H^3] uint8 dilated prepass occupancy on the device;
+    dens8: [H^3, 8] proxy corner table on the device;
+    tau_samples: the tau-carve sample count for this AABB;
+    device: where the frame renders."""
+
+    aabb_np: np.ndarray | None
+    aabb: torch.Tensor | None
+    occ_dil: torch.Tensor | None
+    dens8: torch.Tensor | None
+    tau_samples: int
+    device: torch.device
+
+    @classmethod
+    def build(cls, occ, cfg: RenderConfig, *,
+              density=None) -> "PrepassState":
+        """From the occupancy grid's ``occ`` (and ``density``, which the
+        proxy path needs); tensors go to ``occ``'s device."""
+        device = occ.device
+        aabb_np, occ_dil = _occ_prepass_arrays(occ, cfg, density=density)
+        dens8 = None
+        if (density is not None and cfg.cascades == 1
+                and cfg.infer_mode == "proxy"):
+            dens8 = density_corner_table(density, cfg.grid_size)
+        return cls(
+            aabb_np=aabb_np,
+            aabb=(None if aabb_np is None
+                  else torch.as_tensor(aabb_np, device=device)),
+            occ_dil=(None if occ_dil is None
+                     else torch.as_tensor(occ_dil, device=device)),
+            dens8=dens8,
+            tau_samples=(cfg.prepass_tau_samples if aabb_np is None
+                         else _tau_samples(cfg, aabb_np)),
+            device=device)
+
+
+def _max3x3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 neighbourhood max of a 2D map (edge-padded, no wrap-around)."""
+    for ax in (0, 1):
+        n = x.shape[ax]
+        lo = x.index_select(ax, torch.clamp(
+            torch.arange(n, device=x.device) - 1, min=0))
+        hi = x.index_select(ax, torch.clamp(
+            torch.arange(n, device=x.device) + 1, max=n - 1))
+        x = torch.maximum(x, torch.maximum(lo, hi))
+    return x
+
+
+def _live_permutation(hit_b: torch.Tensor, *, H: int, W: int, Hb: int,
+                      Wb: int, B: int, nb: int):
+    """Live-ray compaction: (perm [n] int64 pixel ids, live pixels first;
+    count [] live pixels).  Block-aligned frames sort the [nb] block hits
+    and expand each block to its B*B pixels (block-grouped order; results
+    scatter by pixel id, so no consumer depends on the order)."""
+    hits_blk = hit_b[:nb]
+    if B > 1 and H % B == 0 and W % B == 0:
+        bperm = torch.argsort((~hits_blk).to(torch.uint8), stable=True)
+        bi = bperm // Wb
+        bj = bperm % Wb
+        d = torch.arange(B, device=hit_b.device)
+        pix = ((bi[:, None, None] * B + d[None, :, None]) * W
+               + bj[:, None, None] * B + d[None, None, :])   # [nb, B, B]
+        count = torch.sum(hits_blk.to(torch.int64)) * (B * B)
+        return pix.reshape(-1), count
+    hits_blk = hits_blk.reshape(Hb, Wb)
+    if B > 1:
+        hits = torch.repeat_interleave(
+            torch.repeat_interleave(hits_blk, B, 0), B, 1)[:H, :W]
+    else:
+        hits = hits_blk
+    hits = hits.reshape(-1)
+    perm = torch.argsort((~hits).to(torch.uint8), stable=True)
+    return perm, torch.sum(hits.to(torch.int64))
+
+
+def _prepass_compact(ro_b, rd_b, occ_dil, aabb, bound, min_near, *,
+                     grid_size: int, margin_steps: float, H: int, W: int,
+                     Hb: int, Wb: int, B: int, nb: int, dens8=None,
+                     tau_cull: float = 0.0, tau_samples: int = 32):
+    """Block prepass + live compaction on the device.
+
+    With ``dens8`` and ``tau_cull`` > 0, a carve pass drops blocks whose
+    whole [t0, t1] span composites below tau_cull alpha under the proxy
+    density (3x3 block-neighbourhood max), and refines each block's
+    window to the alpha-bearing interval (2-sample margin, 3x3 union).
+    The sweep covers the first TAUB = min(4096, nb) hit blocks; blocks
+    past the cap keep their full span (warned about once per call site).
+
+    Returns (perm [n], count [], t0 [nb], t1 [nb], n_hit []): the live
+    permutation and count, the block windows, and the number of hit
+    blocks before the carve."""
+    hit, t0, t1 = _occ_ray_hits(ro_b, rd_b, occ_dil, aabb, bound, min_near,
+                                grid_size, margin_steps=margin_steps)
+    n_hit = torch.sum(hit.to(torch.int64))
+    if dens8 is not None and tau_cull > 0.0 and B > 1:
+        K = tau_samples
+        TAUB = min(4096, nb)
+        bidx = torch.argsort((~hit).to(torch.uint8), stable=True)[:TAUB]
+        ro_c, rd_c = ro_b[bidx], rd_b[bidx]
+        t0_c, t1_c = t0[bidx], t1[bidx]
+        span = torch.clamp(t1_c - t0_c, min=0.0)
+        dt = span / K
+        frac = (torch.arange(K, dtype=ro_b.dtype, device=ro_b.device)
+                + 0.5) / K
+        ts = t0_c[:, None] + span[:, None] * frac
+        sig = _proxy_sigma(dens8, ro_c, rd_c, ts, grid_size, bound)
+        sdt = sig * dt[:, None]
+        alpha_c = 1.0 - torch.exp(-torch.sum(sdt, -1))
+        covered = torch.zeros((nb,), dtype=torch.bool, device=hit.device)
+        covered[bidx] = True
+        alpha = torch.zeros((nb,), dtype=ro_b.dtype, device=hit.device)
+        alpha[bidx] = alpha_c
+        alpha = torch.where(covered, alpha, 1.0)    # uncovered live: keep
+        amap = torch.where(hit, alpha, 0.0).reshape(Hb, Wb)
+        keep = (_max3x3(amap) > tau_cull).reshape(-1)
+        hit = hit & keep
+        # window refinement to the alpha-bearing interval
+        act = sdt > 1e-4
+        any_act_c = torch.any(act, -1)
+        first = _first_true(act)
+        last = K - 1 - _first_true(torch.flip(act, [-1]))
+        t_lo_c = torch.gather(ts, 1, first[:, None])[:, 0] - 2.0 * dt
+        t_hi_c = torch.gather(ts, 1, last[:, None])[:, 0] + 2.0 * dt
+        t_lo_c = torch.where(any_act_c, t_lo_c, t0_c)
+        t_hi_c = torch.where(any_act_c, t_hi_c, t1_c)
+        t_lo = t0.clone()
+        t_lo[bidx] = t_lo_c
+        t_hi = t1.clone()
+        t_hi[bidx] = t_hi_c
+        big = 3.4e38
+        active = torch.zeros((nb,), dtype=torch.bool, device=hit.device)
+        active[bidx] = any_act_c
+        ok = hit & (active | ~covered)
+        lo_map = torch.where(ok, t_lo, big).reshape(Hb, Wb)
+        hi_map = torch.where(ok, t_hi, -big).reshape(Hb, Wb)
+        lo3 = -_max3x3(-lo_map)
+        hi3 = _max3x3(hi_map)
+        has_nb = (hi3 > -big).reshape(-1)    # any active ray in 3x3 patch
+        t0_r = torch.where(has_nb, torch.maximum(t0, lo3.reshape(-1)), t0)
+        t1_r = torch.where(has_nb, torch.minimum(t1, hi3.reshape(-1)), t1)
+        t0 = t0_r
+        t1 = torch.maximum(t1_r, t0_r)
+    perm, count = _live_permutation(hit, H=H, W=W, Hb=Hb, Wb=Wb, B=B, nb=nb)
+    return perm, count, t0, t1, n_hit
+
+
+# ---------------------------------------------------------------------------
+# frame loop
+# ---------------------------------------------------------------------------
+
+def _frame_buffer_packed(bg, *, n: int, device) -> torch.Tensor:
+    """[n, 5] packed frame accumulator (rgb | depth | wsum); the rgb lanes
+    start as the background colour (a scalar or [3])."""
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
+    image = bg.reshape(-1).expand(n, 3)
+    return torch.cat([image, torch.zeros((n, 2), device=device)], dim=-1)
+
+
+def _chunk_rays(pose3, intr, idx_c, W: int):
+    """Chunk rays computed in place from (pose, intrinsics) and pixel ids
+    (the math of data.rays.get_rays restricted to the chunk's pixels)."""
+    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
+    i = (idx_c % W).to(torch.float32) + 0.5
+    j = (idx_c // W).to(torch.float32) + 0.5
+    dirs = torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)],
+                       dim=-1)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    rd = rotate(dirs, pose3[:, :3])
+    ro = pose3[:, 3].expand(rd.shape)
+    return ro, rd
+
+
+def _chunk_body(field_fn, pose3, intr, frame, perm, count: int, start: int,
+                t0_d, t1_d, dens8, cfg: RenderConfig, *, B: int, W: int,
+                Wb: int, chunk: int, select_cdf=None) -> torch.Tensor:
+    """Gather-render-scatter for the live rays perm[start:start+chunk]
+    (the last chunk is shorter).  ``frame``'s rgb lanes still hold the
+    background of every unwritten ray, so the chunk's bg gather reads
+    it; the frame is updated in place and returned."""
+    idx_c = perm[start:min(start + chunk, count)]
+    ro, rd = _chunk_rays(pose3, intr, idx_c, W)
+    bg_c = frame[idx_c, :3]
+    idx_b = (idx_c // (W * B)) * Wb + (idx_c % W) // B if B > 1 else idx_c
+    out = render_rays_proxy(field_fn, dens8, ro, rd, t0_d[idx_b],
+                            t1_d[idx_b], cfg, bg_color=bg_c,
+                            select_cdf=select_cdf)
+    frame[idx_c] = torch.cat([out["image"], out["depth"][:, None],
+                              out["weights_sum"][:, None]], dim=-1)
+    return frame
+
+
+def render_image(field_apply, field_static, params, prepass: PrepassState,
+                 pose, intrinsics, H: int, W: int, cfg: RenderConfig, *,
+                 bg_color=1.0, select_cdf=None):
+    """Render a full frame: block prepass, live compaction, one host sync
+    for the live count, then a plain loop over chunks of live rays.
+
+    field_apply(params, xyzs [M, 3], dirs [M, 3], field_static) ->
+    (sigmas [M], rgbs [M, 3]).  ``prepass`` is the grid's
+    ``PrepassState``.  ``select_cdf`` replaces ``proxy_select_cdf`` (to
+    test the kernel against its plain version).
+
+    Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
+    live: live rays rendered, chunks: chunks rendered)."""
+    device = prepass.device
+    n = H * W
+    chunk = min(cfg.ray_chunk, n)
+    frame = _frame_buffer_packed(bg_color, n=n, device=device)
+
+    def out(frame, live, chunks):
+        return {"image": frame[:, :3].reshape(H, W, 3),
+                "depth": frame[:, 3].reshape(H, W),
+                "weights_sum": frame[:, 4].reshape(H, W),
+                "live": live, "chunks": chunks}
+
+    if prepass.aabb is None:
+        return out(frame, 0, 0)         # nothing occupied: pure background
+    if prepass.occ_dil is None or prepass.dens8 is None:
+        raise NotImplementedError(
+            "render_image: only the proxy path over a single-cascade grid "
+            "with its density is ported; the AABB-hit pool path waits for "
+            "ROADMAP Queue 1, item 4 (occupancy, march and pool)")
+    pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+    intr_np = np.asarray(intrinsics, np.float32)
+    intr = torch.as_tensor(intr_np, device=device)
+    B = max(1, cfg.prepass_block)
+    Hb, Wb = -(-H // B), -(-W // B)
+    nb = Hb * Wb
+    rays_b = get_rays(pose, torch.as_tensor(intr_np / B, device=device),
+                      Hb, Wb)
+    perm, count_d, t0_d, t1_d, n_hit_d = _prepass_compact(
+        rays_b["rays_o"], rays_b["rays_d"], prepass.occ_dil, prepass.aabb,
+        cfg.bound, cfg.min_near, grid_size=cfg.grid_size,
+        margin_steps=(cfg.prepass_margin_steps if B > 1 else 0.0),
+        H=H, W=W, Hb=Hb, Wb=Wb, B=B, nb=nb, dens8=prepass.dens8,
+        tau_cull=cfg.prepass_tau_cull, tau_samples=prepass.tau_samples)
+    # the frame's one host sync: the live count (and the hit-block count
+    # for the tau-sweep cap warning) in one transfer
+    count, n_hit = torch.stack([count_d, n_hit_d]).tolist()
+    if cfg.prepass_tau_cull > 0.0 and B > 1 and n_hit > 4096:
+        # one message text, so the default filter shows it once
+        warnings.warn(
+            "render_image: the hit blocks exceed the tau sweep's cap of "
+            "4096; the blocks past it keep their full span (ROADMAP "
+            "Queue 3)", stacklevel=2)
+    n_chunks = -(-count // chunk)
+
+    def field_fn(x, d):
+        return field_apply(params, x, d, field_static)
+
+    for c in range(n_chunks):
+        frame = _chunk_body(field_fn, pose[:3], intr, frame, perm, count,
+                            c * chunk, t0_d, t1_d, prepass.dens8, cfg, B=B,
+                            W=W, Wb=Wb, chunk=chunk, select_cdf=select_cdf)
+    return out(frame, count, n_chunks)

@@ -1,0 +1,147 @@
+"""The PyTorch port as a package: no JAX at run time, configs that convert,
+fixtures equal to the JAX package's, and a kernel build that never falls
+back."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from nerf_texture_tpu.data.poses import orbit_pose as jax_orbit_pose
+from nerf_texture_tpu.data.synthetic import SyntheticSphereDataset
+from nerf_texture_tpu.models.ngp import NGPConfig as JaxNGPConfig
+from nerf_texture_tpu.ops.hashgrid_packed import (
+    PackedGridSpec as JaxPackedGridSpec)
+from nerf_texture_tpu.render.renderer import RenderConfig as JaxRenderConfig
+from nerf_texture_tpu_torch import kernels
+from nerf_texture_tpu_torch.data.poses import orbit_pose
+from nerf_texture_tpu_torch.data.synthetic import sphere_intrinsics
+from nerf_texture_tpu_torch.models.ngp import NGPConfig
+from nerf_texture_tpu_torch.ops.hashgrid_packed import PackedGridSpec
+from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
+from nerf_texture_tpu_torch.render.renderer import RenderConfig
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import nerf_texture_tpu_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "nerf_texture_tpu" or m.startswith("nerf_texture_tpu."))
+print(len(names), "modules")
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[0]) >= 15, res.stdout
+
+
+@pytest.mark.parametrize("ours,theirs", [
+    (RenderConfig, JaxRenderConfig), (NGPConfig, JaxNGPConfig),
+    (PackedGridSpec, JaxPackedGridSpec)])
+def test_config_fields_match_jax(ours, theirs):
+    mine = [(f.name, f.default) for f in dataclasses.fields(ours)]
+    ref = [(f.name, f.default) for f in dataclasses.fields(theirs)]
+    assert mine == ref
+
+
+def test_bench_configs_convert():
+    kw = dict(bound=1.0, num_levels=8, level_dim=4, log2_bricks=16,
+              desired_resolution=2048)
+    a, b = NGPConfig(**kw).packed_spec, JaxNGPConfig(**kw).packed_spec
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert (a.offsets, a.table_rows, a.storage_width, a.row_width) == (
+        b.offsets, b.table_rows, b.storage_width, b.row_width)
+    r = JaxRenderConfig(grid_size=128, ray_chunk=16384, proxy_samples=0,
+                        infer_color_cap=4, prepass_block=8,
+                        prepass_tau_cull=0.1)
+    assert dataclasses.asdict(RenderConfig(**dataclasses.asdict(r))) == \
+        dataclasses.asdict(r)
+
+
+def test_fixtures_match_jax_package():
+    for theta, phi in [(1.2, 0.7), (np.pi / 2, 0.0), (2.5, 4.0)]:
+        np.testing.assert_array_equal(orbit_pose(theta, phi, 2.0),
+                                      jax_orbit_pose(theta, phi, 2.0))
+    ds = SyntheticSphereDataset(n_frames=2, H=48, W=40)
+    np.testing.assert_array_equal(sphere_intrinsics(48, 40), ds.intrinsics)
+
+
+def test_no_kernel_no_fallback_on_other_devices():
+    sig = torch.ones((4, 8), device="meta")
+    t = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        proxy_select_cdf(sig, sig, t, t, cap=2, w_eps=1e-4)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build("proxy_select")
+    assert not (tmp_path / "kernels").exists() or \
+        not any((tmp_path / "kernels").iterdir())
+
+
+def _fake_nvcc(tmp_path, rc=0):
+    """A stand-in nvcc that writes its -o target (or fails)."""
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then out=$2; fi; shift\n"
+                    "done\n"
+                    f"[ {rc} -eq 0 ] || {{ echo boom >&2; exit {rc}; }}\n"
+                    "echo built > \"$out\"\n")
+    nvcc.chmod(0o755)
+    return tmp_path / "cuda"
+
+
+def test_build_is_keyed_by_source_and_atomic(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(_fake_nvcc(tmp_path)))
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "out")
+    first = kernels.build("k")
+    assert first.path.read_text() == "built\n"
+    again = kernels.build("k")
+    assert again.path == first.path and again.seconds == 0.0
+    (csrc / "k.cu").write_text("// v2\n")
+    changed = kernels.build("k")
+    assert changed.path != first.path
+    # only the two finished libraries: no temporary file is left behind
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == sorted(
+        [first.path.name, changed.path.name])
+
+
+def test_failed_build_raises_and_leaves_nothing(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(_fake_nvcc(tmp_path, rc=2)))
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// broken\n")
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(RuntimeError, match="boom"):
+        kernels.build("k")
+    assert not any((tmp_path / "out").iterdir())
