@@ -3,24 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path -- an 800x800 novel view of the NGP at the
-width ``bench.py`` uses -- through the entry point a user calls
-(``train.trainer.render_frame``), and checks it.  Phases, in order; any
-failure ends the run with a non-zero exit and no result line:
+Drives the port's two paths at the width of ``bench.py``'s NGP arm
+through the entry points a user calls, and checks them: the serving path
+(``train.trainer.render_frame`` of an 800x800 novel view) over seeded
+weights, and the training path (``train.trainer.Trainer``: ``train``,
+``eval_psnr``, ``render_frame``), whose trained field is rendered through
+both survivor selections.  Phases, in order; any failure ends the run with
+a non-zero exit and no result line:
 
   1. device:  a CUDA card is required (there is no CPU path); prints the
               card's name and power limit as nvidia-smi gives them;
-  2. build:   builds the proxy_select_cdf kernel from csrc/ (nvcc, sm_90a);
-  3. kernel:  kernel vs its plain PyTorch version on the card, at the
-              main path's shape [16384, 24] cap 4 and at [8192, 16] cap 5,
-              with degenerate spans, empty rays and ties; times both;
+  2. build:   builds the selection kernels from csrc/ (nvcc, sm_90a);
+  3. kernel:  proxy_select_cdf vs its plain PyTorch version on the card,
+              at the serving path's shape [16384, 24] cap 4 and at
+              [8192, 16] cap 5, with degenerate spans, empty rays and
+              ties; times both;
   4. parity:  a small frame rendered by the port on the card vs the same
               frame by the port on the CPU (whose numerics the tier-1 tests
               hold against the JAX package);
   5. slice:   seeded full-width NGP params over a fixture density shell,
               800x800 frames at novel orbit poses: shape, range, live
               count, kernel launches == chunks, and one frame re-rendered
-              with the plain selection agrees.
+              with the plain selection agrees;
+  6. kernel:  proxy_select (top-k) vs its plain version at the trained
+              render's shape [16384, 24] cap 8 and at [8192, 32] cap 8 and
+              [8192, 16] cap 4, same recipe; times both;
+  7. train:   Trainer on SyntheticSphereDataset(8 frames, 800x800) for
+              50 + 650 steps: the loss is finite and falls, the grid is
+              not empty;
+  8. render:  the trained field: training-view and novel-view PSNR with
+              the bench selection (inverse CDF, cap 4) and with top-k
+              (cap 8), ms/frame of both, launches == chunks for each
+              kernel, and a top-k frame re-rendered with the plain
+              selection agrees.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -29,6 +44,7 @@ line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -59,6 +75,12 @@ FRAME_LIVE_MISMATCH = 0.005
 TWIN_FRAME_PSNR_MIN = 60.0
 TWIN_FRAME_MAX_ABS = 5e-2
 TWIN_FRAME_OFF_SHARE = 1e-3
+# trained field: the JAX package's cells after the same 700 steps
+# (BENCH_r05.json: 27.07 dB on training view 0, 23.94 dB on the novel
+# view), less about 1 dB for the port's other random streams.
+TRAIN_PSNR_MIN = 26.0
+NOVEL_PSNR_MIN = 23.0
+JAX_TRAIN_PSNR, JAX_NOVEL_PSNR = 27.07, 23.94
 
 BENCH_NGP = dict(bound=1.0, num_levels=8, level_dim=4, log2_bricks=16,
                  desired_resolution=2048)
@@ -69,6 +91,9 @@ BENCH_RENDER = dict(bound=1.0, cascades=1, grid_size=128, max_steps=384,
                     pool_mean_samples_infer=24, proxy_samples=0,
                     proxy_refined=24, infer_color_cap=4, prepass_block=8,
                     prepass_tau_cull=0.1)
+# TrainConfig of bench.py's NGP arm, and its 50 + 650 steps
+BENCH_TRAIN = dict(lr=1e-2, total_steps=2000, num_rays=4096, grid_decay=0.85)
+WARM_STEPS, TRAIN_STEPS = 50, 650
 SMALL_NGP = dict(bound=1.0, num_levels=4, level_dim=4, log2_bricks=10,
                  desired_resolution=256)
 SMALL_RENDER = dict(bound=1.0, cascades=1, grid_size=32, ray_chunk=1024,
@@ -119,6 +144,22 @@ def selection_inputs(N: int, K: int, seed: int, dev):
     return [torch.from_numpy(a).to(dev) for a in (ts, sig, t_lo, t_hi)]
 
 
+def check_selection(name, got, ref, N, K, cap, zero_unfilled):
+    """Kernel outputs vs the plain version's: t values within SELECT_ATOL,
+    valid equal, and (top-k) zeros in unfilled slots; returns the max abs
+    error."""
+    err = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1))
+    check(err <= SELECT_ATOL, f"{name} kernel vs plain at [{N}, {K}] cap "
+          f"{cap}: max abs err {err} > {SELECT_ATOL}")
+    check(bool(torch.equal(got[2], ref[2])),
+          f"{name} kernel vs plain valid2 differ at [{N}, {K}] cap {cap}")
+    if zero_unfilled:
+        off = ~got[2]
+        check(bool((got[0][off] == 0).all() and (got[1][off] == 0).all()),
+              f"{name}: unfilled slots not zero at [{N}, {K}] cap {cap}")
+    return err
+
+
 def seeded_params(ngp, mcfg, generator):
     params = ngp.init(generator, mcfg)
     params["grid"] = params["grid"] * TABLE_SCALE
@@ -140,29 +181,34 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
-    # Every matmul on the path multiplies bf16-rounded operands, which
+    # Every matmul of a render multiplies bf16-rounded operands, which
     # TF32 holds exactly, with f32 accumulation: TF32 changes no product,
-    # so the tensor cores may run the MLPs.
+    # so the tensor cores may run the MLPs (training turns it off).
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
 
     from nerf_texture_tpu_torch import kernels
     from nerf_texture_tpu_torch.data.poses import orbit_pose
-    from nerf_texture_tpu_torch.data.synthetic import (shell_occupancy,
-                                                       sphere_intrinsics)
+    from nerf_texture_tpu_torch.data.synthetic import (
+        SyntheticSphereDataset, render_gt_sphere, shell_occupancy,
+        sphere_intrinsics)
     from nerf_texture_tpu_torch.models import ngp
     from nerf_texture_tpu_torch.ops.proxy_select import (
-        proxy_select_cdf, proxy_select_cdf_reference)
+        proxy_select, proxy_select_cdf, proxy_select_cdf_reference,
+        proxy_select_reference)
     from nerf_texture_tpu_torch.render.renderer import (PrepassState,
                                                         RenderConfig)
-    from nerf_texture_tpu_torch.train.trainer import (ngp_infer_params,
+    from nerf_texture_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                      ngp_infer_params,
                                                       render_frame)
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+    wall0 = time.perf_counter()
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build = kernels.build("proxy_select")
     kernels.load_library("proxy_select")
-    print(f"build: proxy_select {build.path.name} in "
+    print(f"build: proxy_select.cu {build.path.name} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {build.seconds:.2f} s)")
     for line in build.log.splitlines():
         if "registers" in line or "spill" in line:
@@ -176,11 +222,8 @@ def main() -> int:
         got = proxy_select_cdf(*args, cap=cap, w_eps=1e-4)
         ref = proxy_select_cdf_reference(*args, cap=cap, w_eps=1e-4)
         torch.cuda.synchronize()
-        err = max(float((got[i] - ref[i]).abs().max()) for i in (0, 1))
-        check(err <= SELECT_ATOL, f"kernel vs plain at [{N}, {K}] cap "
-              f"{cap}: max abs err {err} > {SELECT_ATOL}")
-        check(bool(torch.equal(got[2], ref[2])),
-              f"kernel vs plain valid2 differ at [{N}, {K}] cap {cap}")
+        err = check_selection("proxy_select_cdf", got, ref, N, K, cap,
+                              zero_unfilled=False)
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: proxy_select_cdf(*args, cap=cap, w_eps=1e-4))
         plain = cuda_ms(lambda: proxy_select_cdf_reference(
@@ -245,9 +288,9 @@ def main() -> int:
     poses = [orbit_pose(1.25 + 0.1 * i, 2 * np.pi * (i + 0.5) / 8, 2.0)
              for i in range(4)]
 
-    def frame(pose, select_cdf=None):
+    def frame(pose, plain_select=False):
         return render_frame(iparams, None, pose, intr, H, W, mcfg, rcfg,
-                            prepass=prepass, select_cdf=select_cdf)
+                            prepass=prepass, plain_select=plain_select)
 
     frame(poses[0])                                    # warm-up
     torch.cuda.synchronize()
@@ -278,8 +321,7 @@ def main() -> int:
               "no pixel composites any weight")
 
     img_k = outs[0]["image"].cpu().numpy()
-    img_p = frame(poses[1], select_cdf=proxy_select_cdf_reference)[
-        "image"].cpu().numpy()
+    img_p = frame(poses[1], plain_select=True)["image"].cpu().numpy()
     twin_err = float(np.abs(img_p - img_k).max())
     twin_psnr = psnr(img_p, img_k)
     twin_off = float(np.mean(np.abs(img_p - img_k).max(-1) > 1e-3))
@@ -297,13 +339,167 @@ def main() -> int:
           f"{[out['chunks'] for out in outs]}; proxy_select_cdf launches "
           f"{launches}; peak memory {peak_mb:.1f} MiB ({card})")
 
+    del params, iparams, prepass, outs, occ
+    torch.cuda.empty_cache()
+
+    # -- 6. the top-k kernel vs its plain version on the card ----------------
+    topk_err = 0.0
+    for seed, (N, K, cap) in enumerate([(16384, 24, 8), (8192, 32, 8),
+                                        (8192, 16, 4)]):
+        args = selection_inputs(N, K, 10 + seed, dev)
+        got = proxy_select(*args, cap=cap, w_eps=1e-4)
+        ref = proxy_select_reference(*args, cap=cap, w_eps=1e-4)
+        torch.cuda.synchronize()
+        err = check_selection("proxy_select", got, ref, N, K, cap,
+                              zero_unfilled=True)
+        topk_err = max(topk_err, err)
+        ms = cuda_ms(lambda: proxy_select(*args, cap=cap, w_eps=1e-4))
+        plain = cuda_ms(lambda: proxy_select_reference(*args, cap=cap,
+                                                       w_eps=1e-4))
+        timing[(N, K, cap)] = (ms, plain)
+        print(f"kernel: proxy_select [{N}, {K}] cap {cap}: max abs err "
+              f"{err:.3g}, {int(got[2].sum())} kept of {N * cap} slots; "
+              f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us "
+              f"({card})")
+
+    # -- 7. training at full width -------------------------------------------
+    # Training multiplies f32 gradients, which TF32 would round: full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ds = SyntheticSphereDataset(n_frames=8, H=H, W=W)
+    tcfg = TrainConfig(**BENCH_TRAIN)
+    trainer = Trainer(ds, mcfg, rcfg, tcfg, seed=7, device=dev)
+    torch.cuda.synchronize()
+    print(f"train: dataset + init {time.perf_counter() - t0:.2f} s; "
+          f"{ds.num_frames} frames {H}x{W}, {tcfg.num_rays} rays/step, pool "
+          f"{rcfg.pool_mean_samples}/ray")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = trainer.train(WARM_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = trainer.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = np.asarray(warm["losses"] + run["losses"])
+    refreshes = int(trainer.state.occ.iter_density)
+    occupied = int(trainer.state.occ.occ.sum())
+    its = TRAIN_STEPS / train_s
+    print(f"train: loss step 1 {losses[0]:.5f}, step {WARM_STEPS} "
+          f"{losses[WARM_STEPS - 1]:.5f}, step {len(losses)} "
+          f"{losses[-1]:.5f}; mean of first/last 50: "
+          f"{losses[:50].mean():.5f} / {losses[-50:].mean():.5f}; "
+          f"samples/ray {run['mean_samples']:.1f}")
+    print(f"train: {WARM_STEPS} steps in {warm_s:.2f} s, {TRAIN_STEPS} steps "
+          f"in {train_s:.2f} s = {its:.2f} it/s; {refreshes} grid "
+          f"refreshes, {occupied} of {rcfg.grid_size ** 3} cells occupied; "
+          f"peak memory {train_peak_mb:.1f} MiB ({card})")
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    check(losses[-50:].mean() < losses[:50].mean(),
+          "the training loss did not fall")
+    check(occupied > 0, "the occupancy grid is empty after training")
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # -- 8. the trained field through both selections ------------------------
+    rcfg_topk = dataclasses.replace(rcfg, infer_cdf=False, infer_color_cap=8)
+    prepass_topk = PrepassState.build(trainer.state.occ.occ, rcfg_topk,
+                                      density=trainer.state.occ.density)
+    params_t = ngp_infer_params(trainer.state.params, mcfg)
+
+    def topk_frame(pose, plain_select=False):
+        return render_frame(params_t, None, pose, ds.intrinsics, H, W, mcfg,
+                            rcfg_topk, prepass=prepass_topk,
+                            plain_select=plain_select)
+
+    def white_gt(pose):
+        gt = render_gt_sphere(pose, ds.intrinsics, H, W, ds.sphere_radius)
+        a = gt[..., 3:].astype(np.float32) / 255.0
+        return gt[..., :3].astype(np.float32) / 255.0 * a + (1.0 - a)
+
+    novel = [orbit_pose(np.pi / 2 + 0.2, 0.3 + 0.1 * i, ds.radius)
+             for i in range(4)]
+    topk_frame(novel[0])                               # warm-up
+    trainer.render_frame(novel[0], use_ema=False)
+    torch.cuda.synchronize()
+    proxy_select_cdf.launches = 0
+    psnr_train = trainer.eval_psnr([0], use_ema=False)
+    check(proxy_select_cdf.launches > 0,
+          "eval_psnr never launched proxy_select_cdf")
+    proxy_select_cdf.launches = 0
+    proxy_select.launches = 0
+    out = topk_frame(ds.poses[0])
+    psnr_train_topk = psnr_of(out["image"], white_gt(ds.poses[0]))
+    chunks = {"cdf": 0, "topk": out["chunks"]}
+    walls = {"cdf": [], "topk": []}
+    outs = {}
+    for name in ("cdf", "topk"):
+        for pose in novel:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (trainer.render_frame(pose, use_ema=False) if name == "cdf"
+                   else topk_frame(pose))
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            chunks[name] += out["chunks"]
+            outs.setdefault(name, out)
+    launches = {"cdf": proxy_select_cdf.launches,
+                "topk": proxy_select.launches}
+    gt_novel = white_gt(novel[0])
+    psnr_novel = {k: psnr_of(outs[k]["image"], gt_novel) for k in outs}
+    for name in ("cdf", "topk"):
+        img = outs[name]["image"]
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
+        check(launches[name] > 0, f"{name}: its kernel was never launched")
+        check(launches[name] == chunks[name],
+              f"{name}: {launches[name]} kernel launches for "
+              f"{chunks[name]} chunks")
+    img_k = outs["topk"]["image"].cpu().numpy()
+    img_p = topk_frame(novel[0], plain_select=True)["image"].cpu().numpy()
+    twin_err = float(np.abs(img_p - img_k).max())
+    twin_psnr = psnr(img_p, img_k)
+    twin_off = float(np.mean(np.abs(img_p - img_k).max(-1) > 1e-3))
+    print(f"render: top-k kernel frame vs plain-selection frame: PSNR "
+          f"{twin_psnr:.2f} dB, max abs {twin_err:.3g}, pixels off by > "
+          f"1e-3: {twin_off:.2e}")
+    print(f"render: trained field, inverse CDF cap 4: training view "
+          f"{psnr_train:.2f} dB (JAX package {JAX_TRAIN_PSNR}, gap "
+          f"{psnr_train - JAX_TRAIN_PSNR:+.2f}), novel view "
+          f"{psnr_novel['cdf']:.2f} dB (JAX package {JAX_NOVEL_PSNR}, gap "
+          f"{psnr_novel['cdf'] - JAX_NOVEL_PSNR:+.2f})")
+    print(f"render: trained field, top-k cap 8: training view "
+          f"{psnr_train_topk:.2f} dB, novel view {psnr_novel['topk']:.2f} dB")
+    for name in ("cdf", "topk"):
+        print(f"render: {name} {H}x{W}: "
+              f"{', '.join(f'{w:.2f}' for w in walls[name])} ms/frame "
+              f"(median {float(np.median(walls[name])):.2f}) over "
+              f"{len(novel)} novel poses; live rays {outs[name]['live']}, "
+              f"chunks/frame {outs[name]['chunks']}; launches "
+              f"{launches[name]} for {chunks[name]} chunks ({card})")
+    check(twin_psnr >= TWIN_FRAME_PSNR_MIN and twin_err <= TWIN_FRAME_MAX_ABS
+          and twin_off <= TWIN_FRAME_OFF_SHARE,
+          f"top-k kernel frame vs plain-selection frame: PSNR {twin_psnr} "
+          f"dB, max abs {twin_err}, share off {twin_off}")
+    check(psnr_train >= TRAIN_PSNR_MIN, f"training-view PSNR {psnr_train} "
+          f"< {TRAIN_PSNR_MIN}")
+    check(psnr_novel["cdf"] >= NOVEL_PSNR_MIN, f"novel-view PSNR "
+          f"{psnr_novel['cdf']} < {NOVEL_PSNR_MIN}")
+
+    print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
     ms, plain = timing[(16384, 24, 4)]
-    print(json.dumps({"kernels": [{
-        "name": "proxy_select_cdf", "route": "cuda",
-        "source": "nerf_texture_tpu_torch/csrc/proxy_select.cu",
-        "replaces": "nerf_texture_tpu/ops/proxy_select.py:96",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain}]}))
+    ms_t, plain_t = timing[(16384, 24, 8)]
+    print(json.dumps({"kernels": [
+        {"name": "proxy_select_cdf", "route": "cuda",
+         "source": "nerf_texture_tpu_torch/csrc/proxy_select.cu",
+         "replaces": "nerf_texture_tpu/ops/proxy_select.py:96",
+         "launches": launches["cdf"], "max_abs_err": max_err, "ms": ms,
+         "plain_ms": plain},
+        {"name": "proxy_select", "route": "cuda",
+         "source": "nerf_texture_tpu_torch/csrc/proxy_select.cu",
+         "replaces": "nerf_texture_tpu/ops/proxy_select.py:49",
+         "launches": launches["topk"], "max_abs_err": topk_err, "ms": ms_t,
+         "plain_ms": plain_t}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,18 +6,26 @@ counterpart of ``nerf_texture_tpu/render/renderer.py``) and is held
 against it by the ``tests/test_torch_*.py`` parity tests.  It imports
 ``torch`` and never ``jax`` or the JAX package.
 
-What is ported so far is the serving path of the Instant-NGP model:
-``train.trainer.render_frame`` renders a novel view through the
-prepass, the proxy sweep, the ``proxy_select_cdf`` CUDA kernel
-(``csrc/proxy_select.cu``) and the packed hash-grid field.
+What is ported so far is the Instant-NGP stage: ``train.trainer.Trainer``
+trains the field (march, sample pool, packed hash-grid encode with its
+scatter backward, Adam, EMA, grid refresh), and ``render_frame`` renders
+a view through the prepass, the proxy sweep and one of the two survivor
+selection kernels of ``csrc/proxy_select.cu`` (``proxy_select_cdf`` or
+``proxy_select``).
 
-- ``ops``      -- trunc_exp, SH encoding, packed hash-grid encode
-                  (forward), ray/AABB slab test, occupancy container,
-                  proxy_select_cdf (CUDA kernel + plain twin)
+- ``ops``      -- trunc_exp, SH encoding, packed hash-grid encode and its
+                  row lookup/scatter autograd pair, slab test and march,
+                  compositing, occupancy grid (refresh, mark_untrained),
+                  proxy_select_cdf / proxy_select (CUDA kernels + plain
+                  twins)
 - ``models``   -- NGP config, init and forward
-- ``render``   -- the proxy inference renderer (prepass, chunk loop)
-- ``data``     -- ray generation, orbit poses, synthetic-sphere fixtures
-- ``train``    -- the NGP field functions and the serving render_frame
+- ``render``   -- render_rays (training, the sample pool of ``compact``)
+                  and the proxy inference renderer (prepass, chunk loop)
+- ``data``     -- ray generation and sampling, orbit poses, the
+                  synthetic-sphere dataset and fixtures
+- ``train``    -- TrainConfig, Trainer, train_step, grid_step,
+                  render_frame
+- ``utils``    -- MLP, PSNR
 - ``convert``  -- JAX param / occupancy pytrees (as numpy) -> torch
 - ``kernels``  -- nvcc build + ctypes load of ``csrc/*.cu``
 """

@@ -1,6 +1,6 @@
 """Ray generation (port of ``nerf_texture_tpu/data/rays.py``): pixel-center
 rays in the ngp camera convention (the camera looks along +z of the c2w
-rotation)."""
+rotation), and random pixel sampling for training."""
 
 from __future__ import annotations
 
@@ -42,3 +42,16 @@ def get_rays(pose: torch.Tensor, intrinsics: torch.Tensor, H: int, W: int,
     rays_d = rotate(dirs, pose[:3, :3])
     rays_o = pose[:3, 3].expand(rays_d.shape)
     return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds}
+
+
+def sample_ray_indices(generator: torch.Generator, H: int, W: int, n: int,
+                       error_map=None):
+    """n uniform random pixel indices in [0, H*W) on the generator's
+    device.  Returns (inds [n] int64, None), as the JAX function does
+    without an error map."""
+    if error_map is not None:
+        raise NotImplementedError(
+            "sample_ray_indices: error-map importance sampling is not "
+            "ported; ROADMAP Queue 1, item 11.4")
+    return torch.randint(0, H * W, (n,), generator=generator,
+                         device=generator.device), None

@@ -47,6 +47,8 @@ class NGPConfig:
     log2_bricks: int = 16
     # inference reads hash-table rows through a bf16 copy
     infer_table_bf16: bool = True
+    # an f32 table is read through bf16 rows, its gradient accumulated in
+    # f32 (``hashgrid_packed._rows_lookup_amp``)
     train_table_bf16: bool = True
 
     @property
@@ -93,12 +95,18 @@ def encode_position(params, x: torch.Tensor, cfg: NGPConfig,
                     table_dtype=None) -> torch.Tensor:
     """Positional features for x in [-bound, bound].  table_dtype=bf16
     reads the table through a bf16 copy (made here unless params["grid"]
-    already is one, see ``hashgrid_packed.inference_table``)."""
+    already is one, see ``hashgrid_packed.inference_table``); otherwise
+    an f32 table is read through the AMP lookup when
+    ``cfg.train_table_bf16`` is set, as in the JAX package."""
     _check_ported(cfg)
     table = params["grid"]
     if table_dtype is not None and table.dtype != table_dtype:
         table = table.to(table_dtype)
-    return packed_encode_bound(x, table, cfg.packed_spec, bound=cfg.bound)
+        amp = False
+    else:
+        amp = cfg.train_table_bf16
+    return packed_encode_bound(x, table, cfg.packed_spec, bound=cfg.bound,
+                               amp=amp)
 
 
 def density(params, x: torch.Tensor, cfg: NGPConfig, table_dtype=None):

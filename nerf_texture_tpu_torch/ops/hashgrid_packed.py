@@ -1,4 +1,4 @@
-"""Packed (bricked) multiresolution hash encoding, forward only.
+"""Packed (bricked) multiresolution hash encoding.
 
 Port of ``nerf_texture_tpu/ops/hashgrid_packed.py``: parameters are stored
 per brick of 2**D cells, one table row holding the brick's 3**D corner
@@ -12,8 +12,12 @@ Hashing: the JAX code multiplies uint32 brick coords by primes up to
 so ids are computed in int64 and masked to 32 bits after every multiply
 and XOR, which gives the same bits.
 
-The table backward (``_rows_lookup`` / ``_rows_scatter``) belongs to the
-training port and is not here.
+Table lookups go through ``_rows_lookup`` / ``_rows_scatter``, a pair of
+``autograd.Function``s each of which is the other's backward, so
+gradients of any order stay on them (the JAX custom-VJP pair); with
+``amp`` an f32 table is read through ``_rows_lookup_amp`` (bf16 rows, f32
+scatter-accumulated gradient).  They are plain PyTorch gathers and
+``index_add_`` scatters: no TPU kernel stands behind them.
 """
 
 from __future__ import annotations
@@ -118,6 +122,69 @@ class PackedGridSpec:
         return u * (2.0 * std) - std
 
 
+# ---------------------------------------------------------------------------
+# row lookup with a scatter backward
+# ---------------------------------------------------------------------------
+
+class _RowsLookupFn(torch.autograd.Function):
+    """table[idx] whose backward is ``_rows_scatter`` of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, table, idx, n_rows: int):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = n_rows
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _RowsScatterFn.apply(g, idx, ctx.n_rows), None, None
+
+
+class _RowsScatterFn(torch.autograd.Function):
+    """Transpose of ``_rows_lookup``: rows of g [B, W] summed into a
+    [n_rows, W] table by idx (one index_add_); its backward is
+    ``_rows_lookup`` of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, g, idx, n_rows: int):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = n_rows
+        return g.new_zeros((n_rows, g.shape[1])).index_add_(0, idx, g)
+
+    @staticmethod
+    def backward(ctx, gt):
+        (idx,) = ctx.saved_tensors
+        return _RowsLookupFn.apply(gt, idx, ctx.n_rows), None, None
+
+
+class _RowsLookupAmpFn(torch.autograd.Function):
+    """Mixed-precision lookup: rows gathered from a bf16 copy of the f32
+    table, the cotangent cast to f32 and scatter-accumulated into the
+    f32 table."""
+
+    @staticmethod
+    def forward(ctx, table, idx, n_rows: int):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = n_rows
+        return table.to(torch.bfloat16)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return (_RowsScatterFn.apply(g.to(torch.float32), idx, ctx.n_rows),
+                None, None)
+
+
+_rows_lookup = _RowsLookupFn.apply
+_rows_scatter = _RowsScatterFn.apply
+_rows_lookup_amp = _RowsLookupAmpFn.apply
+
+
+# ---------------------------------------------------------------------------
+# encoding
+# ---------------------------------------------------------------------------
+
 def _brick_ids(spec: PackedGridSpec, level: int,
                brick: torch.Tensor) -> torch.Tensor:
     """Global table row (int64) for [B, D] integer brick coords of one
@@ -178,15 +245,16 @@ def _indices_weights(spec: PackedGridSpec, x: torch.Tensor):
 
 
 def packed_encode(inputs: torch.Tensor, table: torch.Tensor,
-                  spec: PackedGridSpec) -> torch.Tensor:
+                  spec: PackedGridSpec, amp: bool = False) -> torch.Tensor:
     """Encode [..., D] points in [0, 1] -> [..., L * C] f32 features
     (level-major), zero outside the unit cube.
 
     ``table`` is the f32 storage table [rows, storage_width] or an
     inference table in bf16 (any width >= row_width, see
-    ``inference_table``).  With a bf16 table the lattice weights are
-    rounded to bf16 too and the products accumulate in f32, as the JAX
-    bf16 einsum with preferred_element_type=f32 does."""
+    ``inference_table``).  ``amp`` reads an f32 table through bf16 rows
+    (``_rows_lookup_amp``).  Whenever the rows are bf16 the lattice
+    weights are rounded to bf16 too and the products accumulate in f32,
+    as the JAX bf16 einsum with preferred_element_type=f32 does."""
     D = spec.input_dim
     C = spec.level_dim
     L = spec.num_levels
@@ -194,22 +262,26 @@ def packed_encode(inputs: torch.Tensor, table: torch.Tensor,
     x = inputs.reshape(-1, D)
     B = x.shape[0]
     idx, w, oob = _indices_weights(spec, x)
-    rows = table[idx][:, :spec.row_width]                  # [L*B, 27C]
-    rows = rows.reshape(L * B, spec.lattice, C).to(torch.float32)
+    if amp and table.dtype == torch.float32:
+        rows = _rows_lookup_amp(table, idx, spec.table_rows)
+    else:
+        rows = _rows_lookup(table, idx, spec.table_rows)
+    rows = rows[:, :spec.row_width].reshape(L * B, spec.lattice, C)
     w = w.reshape(L * B, spec.lattice, 1)
-    if table.dtype == torch.bfloat16:
+    if rows.dtype == torch.bfloat16:
         w = w.to(torch.bfloat16).to(torch.float32)
-    out = torch.sum(w * rows, dim=1)                       # [L*B, C]
+    out = torch.sum(w * rows.to(torch.float32), dim=1)     # [L*B, C]
     out = out.reshape(L, B, C).transpose(0, 1).reshape(B, spec.output_dim)
     out = torch.where(oob, 0.0, out)
     return out.reshape(*prefix, spec.output_dim)
 
 
 def packed_encode_bound(inputs: torch.Tensor, table: torch.Tensor,
-                        spec: PackedGridSpec,
-                        bound: float = 1.0) -> torch.Tensor:
+                        spec: PackedGridSpec, bound: float = 1.0,
+                        amp: bool = False) -> torch.Tensor:
     """Encode points given in [-bound, bound]."""
-    return packed_encode((inputs + bound) / (2.0 * bound), table, spec)
+    return packed_encode((inputs + bound) / (2.0 * bound), table, spec,
+                         amp=amp)
 
 
 def inference_table(table: torch.Tensor,

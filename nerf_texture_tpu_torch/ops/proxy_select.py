@@ -1,17 +1,23 @@
-"""Inverse-CDF survivor placement for the proxy renderer.
+"""Survivor selection for the proxy renderer: [N, K] proxy densities ->
+[N, cap] sample slots.
 
-``proxy_select_cdf`` is the port of the TPU kernel
-``nerf_texture_tpu/ops/proxy_select.py::proxy_select_cdf``: on a CUDA
-tensor it launches the hand-written kernel ``csrc/proxy_select.cu``
-(built at first use, see ``kernels.py``) or raises; on a CPU tensor it
-runs ``proxy_select_cdf_reference``, the plain PyTorch version of the
+Ports of the two TPU kernels of ``nerf_texture_tpu/ops/proxy_select.py``:
+
+- ``proxy_select_cdf``: stratified inverse-CDF placement of ``cap``
+  quantiles (``infer_cdf=True``, the bench render);
+- ``proxy_select``: the top-``cap`` samples by proxy weight, in t order,
+  with the optical depth of the dropped samples (``infer_cdf=False``).
+
+On a CUDA tensor each wrapper launches its hand-written kernel in
+``csrc/proxy_select.cu`` (built at first use, see ``kernels.py``) and
+counts the launch in its ``launches`` attribute, or raises; on a CPU
+tensor it runs its ``*_reference`` twin, the plain PyTorch version of the
 same function, which is also the kernel's oracle on the card.
 
-Both prefix sums use the Hillis-Steele association of the TPU kernel's
+Every prefix sum uses the Hillis-Steele association of the TPU kernels'
 ``_cumsum_lanes`` (``cumsum_lanes`` below, and a warp scan in the
-kernel), so the TPU kernel, the CUDA kernel and the plain version round
-alike.  The top-k selection kernel ``proxy_select`` (used only with
-``infer_cdf=False``) is not ported yet.
+kernels), so the TPU kernels, the CUDA kernels and the plain versions
+round alike.
 """
 
 from __future__ import annotations
@@ -81,13 +87,110 @@ def proxy_select_cdf_reference(ts, sig, t_lo, t_hi, *, cap: int,
     return ts2, dt2, valid.expand(N, cap)
 
 
+def proxy_select_reference(ts, sig, t_lo, t_hi, *, cap: int,
+                           w_eps: float):
+    """Plain PyTorch ``proxy_select``: each ray's top-``cap`` proxy
+    samples by weight, in t order.
+
+    ts / sig [N, K], t_lo / t_hi [N], all f32.  The k-th largest weight
+    comes from ``cap`` rounds of (max, mask its first occurrence), which
+    matches ``lax.top_k`` when weights repeat; candidates at or above it
+    and above ``w_eps`` are ranked in t order and capped at ``cap``.
+    Returns (ts2 [N, cap] f32: the kept samples' ts; skip2 [N, cap] f32:
+    the proxy optical depth of the dropped samples before each kept one;
+    valid2 [N, cap] bool), with zeros in unfilled slots."""
+    N, K = sig.shape
+    span = torch.clamp(t_hi - t_lo, min=0.0)[:, None]         # [N, 1]
+    dts = span / K
+    sdt = sig * dts
+    cs = cumsum_lanes(sdt)
+    trans = torch.exp(-(cs - sdt))
+    w = trans * (1.0 - torch.exp(-sdt))
+    w = torch.where(span > 0.0, w, 0.0)                        # [N, K]
+
+    w_cur = w
+    kth = torch.zeros_like(span)
+    for _ in range(cap):
+        kth = torch.amax(w_cur, dim=-1, keepdim=True)          # [N, 1]
+        eq = (w_cur == kth).to(sig.dtype)
+        first = (eq > 0.0) & (cumsum_lanes(eq) == 1.0)
+        w_cur = torch.where(first, -1.0, w_cur)
+
+    valid = span > 0.0                                         # [N, 1]
+    cand = valid & (w >= kth) & (w > w_eps)
+    candf = cand.to(sig.dtype)
+    rank = cumsum_lanes(candf) - candf                         # 0-based
+    keep = cand & (rank < cap)
+    skip_sdt = torch.where(keep | ~valid, 0.0, sdt)
+    skip_excl = cumsum_lanes(skip_sdt) - skip_sdt
+
+    c = torch.arange(cap, dtype=sig.dtype, device=sig.device)
+    slot = keep[:, None, :] & (rank[:, None, :] == c[None, :, None])
+    ts2 = torch.sum(torch.where(slot, ts[:, None, :], 0.0), dim=-1)
+    skip2 = torch.sum(torch.where(slot, skip_excl[:, None, :], 0.0), dim=-1)
+    return ts2, skip2, torch.any(slot, dim=-1)
+
+
 @functools.cache
-def _launcher():
-    fn = load_library("proxy_select").proxy_select_cdf_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+def _launcher(name: str, n_ptr: int, n_float: int):
+    """The C entry point ``name`` of csrc/proxy_select.cu: ``n_ptr``
+    tensor pointers, (n, k, cap), ``n_float`` floats, the stream."""
+    fn = getattr(load_library("proxy_select"), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_kernel_inputs(fname: str, ts, sig, t_lo, t_hi, cap: int):
+    """Raise on what the kernels do not take: a device other than CUDA,
+    K > 32, cap outside [1, K], and a tensor of another device, dtype
+    than f32, shape or layout.  Returns (N, K)."""
+    if sig.device.type != "cuda":
+        raise ValueError(f"{fname}: no kernel for device {sig.device}")
+    if sig.dim() != 2:
+        raise ValueError(f"{fname}: sig must be [N, K], got "
+                         f"{tuple(sig.shape)}")
+    N, K = sig.shape
+    if K > MAX_K:
+        raise ValueError(f"{fname}: K={K} proxy samples exceed the CUDA "
+                         f"kernel's limit of {MAX_K} (one warp lane per "
+                         f"sample)")
+    if not 1 <= cap <= K:
+        raise ValueError(f"{fname}: cap={cap} must be in [1, K={K}]")
+    for name, t, shape in (("ts", ts, (N, K)), ("sig", sig, (N, K)),
+                           ("t_lo", t_lo, (N,)), ("t_hi", t_hi, (N,))):
+        if t.device != sig.device:
+            raise ValueError(f"{fname}: {name} on {t.device}, sig on "
+                             f"{sig.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fname}: {name} must be float32, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fname}: {name} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fname}: {name} must be contiguous")
+    return N, K
+
+
+def _outputs(N: int, cap: int, device):
+    """Uninitialised [N, cap] (f32, f32, bool) outputs: the kernels write
+    every slot."""
+    a = torch.empty((N, cap), dtype=torch.float32, device=device)
+    return a, torch.empty_like(a), torch.empty((N, cap), dtype=torch.bool,
+                                               device=device)
+
+
+def _run(fname: str, launch, device, *args):
+    """Launch on the current stream of ``device``; raise on a refused
+    launch (the C function returns cudaGetLastError())."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = launch(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fname}: kernel launch failed with cudaError "
+                           f"{err}")
 
 
 def proxy_select_cdf(ts, sig, t_lo, t_hi, *, cap: int, w_eps: float):
@@ -101,52 +204,44 @@ def proxy_select_cdf(ts, sig, t_lo, t_hi, *, cap: int, w_eps: float):
     if sig.device.type == "cpu":
         return proxy_select_cdf_reference(ts, sig, t_lo, t_hi, cap=cap,
                                           w_eps=w_eps)
-    if sig.device.type != "cuda":
-        raise ValueError(f"proxy_select_cdf: no kernel for device "
-                         f"{sig.device}")
-    if sig.dim() != 2:
-        raise ValueError(f"proxy_select_cdf: sig must be [N, K], got "
-                         f"{tuple(sig.shape)}")
-    N, K = sig.shape
-    if K > MAX_K:
-        raise ValueError(f"proxy_select_cdf: K={K} proxy samples exceed the "
-                         f"CUDA kernel's limit of {MAX_K} (one warp lane "
-                         f"per sample)")
-    if not 1 <= cap <= K:
-        raise ValueError(f"proxy_select_cdf: cap={cap} must be in [1, K={K}]")
-    if tuple(ts.shape) != (N, K):
-        raise ValueError(f"proxy_select_cdf: ts {tuple(ts.shape)} and sig "
-                         f"{tuple(sig.shape)} differ")
-    for name, t, shape in (("sig", sig, (N, K)), ("t_lo", t_lo, (N,)),
-                           ("t_hi", t_hi, (N,))):
-        if t.device != sig.device:
-            raise ValueError(f"proxy_select_cdf: {name} on {t.device}, sig "
-                             f"on {sig.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"proxy_select_cdf: {name} must be float32, "
-                            f"got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"proxy_select_cdf: {name} must have shape "
-                             f"{shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"proxy_select_cdf: {name} must be contiguous")
-
-    ts2 = torch.empty((N, cap), dtype=torch.float32, device=sig.device)
-    dt2 = torch.empty_like(ts2)
-    valid2 = torch.empty((N, cap), dtype=torch.bool, device=sig.device)
+    N, K = _check_kernel_inputs("proxy_select_cdf", ts, sig, t_lo, t_hi,
+                                cap)
+    ts2, dt2, valid2 = _outputs(N, cap, sig.device)
     if N == 0:
         return ts2, dt2, valid2
-    launch = _launcher()
-    with torch.cuda.device(sig.device):
-        stream = torch.cuda.current_stream(sig.device).cuda_stream
-        err = launch(sig.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
-                     ts2.data_ptr(), dt2.data_ptr(), valid2.data_ptr(),
-                     N, K, cap, float(w_eps), DT_CLAMP, stream)
-    if err != 0:
-        raise RuntimeError(f"proxy_select_cdf: kernel launch failed with "
-                           f"cudaError {err}")
+    _run("proxy_select_cdf", _launcher("proxy_select_cdf_launch", 6, 2),
+         sig.device, sig.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
+         ts2.data_ptr(), dt2.data_ptr(), valid2.data_ptr(), N, K, cap,
+         float(w_eps), DT_CLAMP)
     proxy_select_cdf.launches += 1
     return ts2, dt2, valid2
 
 
 proxy_select_cdf.launches = 0
+
+
+def proxy_select(ts, sig, t_lo, t_hi, *, cap: int, w_eps: float):
+    """Top-``cap`` survivor selection over the proxy weights.
+
+    Same call as the JAX function.  On the CPU this is
+    ``proxy_select_reference``; on a CUDA tensor it launches
+    ``csrc/proxy_select.cu`` and counts the launch in
+    ``proxy_select.launches``, or raises on inputs the kernel does not
+    take.  Returns (ts2, skip2, valid2), each [N, cap], zero in unfilled
+    slots."""
+    if sig.device.type == "cpu":
+        return proxy_select_reference(ts, sig, t_lo, t_hi, cap=cap,
+                                      w_eps=w_eps)
+    N, K = _check_kernel_inputs("proxy_select", ts, sig, t_lo, t_hi, cap)
+    ts2, skip2, valid2 = _outputs(N, cap, sig.device)
+    if N == 0:
+        return ts2, skip2, valid2
+    _run("proxy_select", _launcher("proxy_select_launch", 7, 1), sig.device,
+         ts.data_ptr(), sig.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
+         ts2.data_ptr(), skip2.data_ptr(), valid2.data_ptr(), N, K, cap,
+         float(w_eps))
+    proxy_select.launches += 1
+    return ts2, skip2, valid2
+
+
+proxy_select.launches = 0

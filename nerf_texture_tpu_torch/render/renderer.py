@@ -1,7 +1,10 @@
-"""Rendering orchestration: the proxy inference path.
+"""Rendering orchestration (port of ``nerf_texture_tpu/render/renderer.py``).
 
-Port of the inference half of ``nerf_texture_tpu/render/renderer.py``.
-A frame renders as:
+``render_rays`` renders a batch of rays for training: slab test ->
+occupancy march -> the compacted sample pool (or the dense [N, K] grid)
+-> one field evaluation -> composite.
+
+``render_image`` renders a frame through the proxy path:
 
   prepass (once per occupancy grid, ``PrepassState``: tight AABB, salt
   filter, dilated occupancy, proxy corner table) ->
@@ -9,8 +12,9 @@ A frame renders as:
   tau carve + window refinement under the proxy density) ->
   live compaction (hit blocks first) -> ONE host sync for the live
   count -> a plain loop over chunks of live rays:
-  proxy sweep -> proxy_select_cdf -> field on the cap survivors ->
-  exact composite -> scatter into the packed frame buffer.
+  proxy sweep -> survivor selection (``proxy_select_cdf`` or
+  ``proxy_select``) -> field on the cap survivors -> exact composite ->
+  scatter into the packed frame buffer.
 
 The JAX module's ``jit`` programs, ``lax.while_loop`` and
 ``frame_one_program`` are TPU dispatch machinery; here they are one
@@ -18,10 +22,10 @@ Python loop, and its last chunk is simply shorter (no padding).  The
 ``id()``-keyed prepass and corner-table caches become the explicit
 ``PrepassState`` that the caller builds once per grid.
 
-Ported: the single-round proxy path with inverse-CDF placement
-(``proxy_samples=0``, ``proxy_pallas``, ``infer_cdf``), without anchors
-or deferred shading.  Other branches raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): the two-round proxy (``proxy_samples > 0``), anchors, deferred
+shading, the two-phase ``sigma_fn`` pool render, and ``render_image``'s
+pool path for grids without a proxy corner table.
 """
 
 from __future__ import annotations
@@ -34,8 +38,12 @@ import numpy as np
 import torch
 
 from ..data.rays import get_rays, rotate
-from ..ops.marching import near_far_from_aabb
-from ..ops.proxy_select import proxy_select_cdf
+from ..ops.composite import composite_rays, composite_with_background
+from ..ops.marching import march_rays, near_far_from_aabb, sample_points
+from ..ops.proxy_select import (proxy_select, proxy_select_cdf,
+                                proxy_select_cdf_reference,
+                                proxy_select_reference)
+from .compact import composite_flat, flat_points, flatten_samples
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +84,73 @@ class RenderConfig:
     proxy_pallas: bool = True
     infer_cdf: bool = True
     proxy_bf16: bool = False
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def render_rays(field_fn, occ, rays_o, rays_d, cfg: RenderConfig, *,
+                max_samples: int, perturb: bool = False, u=None,
+                bg_color=1.0, pool_mean: int | None = None,
+                anchor_fn=None, sigma_fn=None):
+    """Render a batch of rays (training, and the pool path of inference).
+
+    field_fn: (xyzs [M, 3], dirs [M, 3]) -> (sigmas [M], rgbs [M, 3]);
+    occ: [cascades * grid_size**3] uint8; rays_o / rays_d [N, 3];
+    bg_color: scalar, [3] or [N, 3]; ``perturb`` jitters each ray's start
+    by u [N] in [0, 1) (see ``march_rays``).  With ``pool_mean`` > 0
+    (default ``cfg.pool_mean_samples``) the field runs on the compacted
+    pool of about N * pool_mean samples, else on the dense [N, K] grid.
+
+    Returns dict(image [N, 3], depth [N], weights_sum [N], counts [N])."""
+    if anchor_fn is not None:
+        raise NotImplementedError(
+            "render_rays: anchors belong to the curved model; ROADMAP "
+            "Queue 1, item 8")
+    if sigma_fn is not None:
+        raise NotImplementedError(
+            "render_rays: the two-phase sigma_fn pool render (survivor_pool)"
+            " is not ported; ROADMAP Queue 1, item 4")
+    aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3,
+                        dtype=rays_o.dtype, device=rays_o.device)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    m = march_rays(rays_o, rays_d, occ, nears, fars, bound=cfg.bound,
+                   cascades=cfg.cascades, grid_size=cfg.grid_size,
+                   max_steps=cfg.max_steps, max_samples=max_samples,
+                   dt_gamma=cfg.dt_gamma, perturb=perturb, u=u)
+    N, K = m.ts.shape
+    denom = torch.where(fars > nears, fars - nears, 1.0)
+    bg = torch.as_tensor(bg_color, dtype=rays_o.dtype, device=rays_o.device)
+    if pool_mean is None:
+        pool_mean = cfg.pool_mean_samples
+    if pool_mean:
+        flat = flatten_samples(m, _round_up(N * pool_mean, 1024))
+        xyzs, dirs = flat_points(rays_o, rays_d, flat, cfg.bound)
+        sigmas, rgbs = _field_pair(field_fn(xyzs, dirs))
+        res = composite_flat(sigmas.reshape(-1) * cfg.density_scale,
+                             rgbs.reshape(-1, 3), flat)
+        image = res.image + (1.0 - res.weights_sum)[..., None] * bg
+    else:
+        xyzs, dirs = sample_points(rays_o, rays_d, m, cfg.bound)
+        sigmas, rgbs = _field_pair(field_fn(xyzs.reshape(N * K, 3),
+                                            dirs.reshape(N * K, 3)))
+        res = composite_rays(sigmas.reshape(N, K) * cfg.density_scale,
+                             rgbs.reshape(N, K, 3), m.dts, m.ts, m.mask)
+        image = composite_with_background(res, bg)
+    depth = torch.clamp(res.depth - nears, min=0.0) / denom
+    return {"image": image, "depth": depth, "weights_sum": res.weights_sum,
+            "counts": m.counts}
+
+
+def _field_pair(out):
+    """(sigma, rgb) of a field's output; extra per-sample attributes
+    (normals) belong to the curved model."""
+    if not isinstance(out, tuple) or len(out) != 2:
+        raise NotImplementedError(
+            "render_rays: fields with extra per-sample outputs belong to "
+            "the curved model; ROADMAP Queue 1, item 8")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -128,42 +203,65 @@ def _proxy_sigma(dens8: torch.Tensor, rays_o: torch.Tensor,
 
 
 def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
-                      cfg: RenderConfig, *, bg_color=1.0, select_cdf=None):
+                      cfg: RenderConfig, *, bg_color=1.0,
+                      plain_select: bool = False):
     """Proposal-style inference over each ray's prepass span [nears,
-    fars]: K proxy densities -> ``cap`` inverse-CDF survivors -> the field
-    on the survivors only -> exact composite.  Rays without a span
-    composite to pure background.
+    fars]: K proxy densities -> ``cap`` survivors -> the field on the
+    survivors only -> exact composite.  Rays without a span composite to
+    pure background.
 
-    ``select_cdf`` replaces ``proxy_select_cdf`` (for testing the kernel
-    against its plain version); None uses the kernel wrapper."""
-    if cfg.proxy_samples != 0 or not cfg.proxy_pallas or not cfg.infer_cdf:
+    Survivors are placed by inverse CDF (``infer_cdf``, kernel
+    ``proxy_select_cdf``) or taken as the top-``cap`` samples by proxy
+    weight (kernel ``proxy_select``, with the dropped samples' optical
+    depth).  ``proxy_pallas=False`` takes the top-k selection too: the
+    JAX package's XLA chain has the Pallas kernel's semantics, and there
+    is no inverse-CDF twin of it (a warning says so, as in JAX).
+    ``plain_select`` runs the plain PyTorch selections in place of the
+    kernels (to hold them against each other)."""
+    if cfg.proxy_samples != 0:
         raise NotImplementedError(
-            "render_rays_proxy: only single-round inverse-CDF placement "
-            "(proxy_samples=0, proxy_pallas=True, infer_cdf=True) is "
-            "ported; two-round proxy and top-k selection wait for ROADMAP "
-            "Queue 2, item 2 (proxy_select)")
-    select_cdf = proxy_select_cdf if select_cdf is None else select_cdf
+            "render_rays_proxy: the two-round proxy (proxy_samples > 0) is "
+            "not ported; ROADMAP Queue 1, item 6")
+    cdf = cfg.infer_cdf and cfg.proxy_pallas
+    if cfg.infer_cdf and not cfg.proxy_pallas:
+        warnings.warn(
+            "infer_cdf=True requires proxy_pallas; falling back to the "
+            "top-k survivor selection (different sampling algorithm).",
+            stacklevel=2)
+    if cdf:
+        select = proxy_select_cdf_reference if plain_select \
+            else proxy_select_cdf
+    else:
+        select = proxy_select_reference if plain_select else proxy_select
     cap, K = cfg.infer_color_cap, cfg.proxy_refined
     t_lo, t_hi = nears, fars
     span = torch.clamp(t_hi - t_lo, min=0.0)
+    dts = span / K
     frac = (torch.arange(K, dtype=rays_o.dtype, device=rays_o.device)
             + 0.5) / K
     ts = t_lo[:, None] + span[:, None] * frac
     sig_p = _proxy_sigma(dens8, rays_o, rays_d, ts, cfg.grid_size,
                          cfg.bound)
     cap_eff = min(cap, K)
-    ts2, dt2, valid2 = select_cdf(ts, sig_p, t_lo, t_hi, cap=cap_eff,
-                                  w_eps=float(cfg.infer_w_eps))
-    return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, ts2, dt2,
-                       valid2, cap_eff, cfg, bg_color=bg_color)
+    ts2, seg2, valid2 = select(ts, sig_p, t_lo, t_hi, cap=cap_eff,
+                               w_eps=float(cfg.infer_w_eps))
+    if cdf:
+        return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2,
+                           None, valid2, cap_eff, cfg, bg_color=bg_color,
+                           dt2=seg2)
+    return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2,
+                       seg2, valid2, cap_eff, cfg, bg_color=bg_color)
 
 
-def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, ts2, dt2, valid2,
-                cap_eff: int, cfg: RenderConfig, *, bg_color):
+def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2, skip2,
+                valid2, cap_eff: int, cfg: RenderConfig, *, bg_color,
+                dt2=None):
     """Exact field eval + front-to-back composite over the [N, cap]
-    survivor slots, each integrated over its segment dt2 (under
-    inverse-CDF placement no dropped sample's optical depth is added:
-    the JAX code's skip2 is zero there)."""
+    survivor slots.  Each slot integrates over its segment dt2 (inverse-
+    CDF placement) or the bin width dts (top-k); ``skip2`` (top-k only;
+    None otherwise) adds the proxy optical depth of the dropped samples
+    before each survivor, so the transmittance it sees matches the full
+    integral."""
     N = rays_o.shape[0]
     x2 = torch.clamp(rays_o[:, None, :] + ts2[..., None] * rays_d[:, None, :],
                      -cfg.bound, cfg.bound)              # [N, cap, 3]
@@ -174,9 +272,13 @@ def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, ts2, dt2, valid2,
     sigma2 = out[0].reshape(N, cap_eff) * cfg.density_scale
     rgb2 = out[1].reshape(N, cap_eff, 3)
 
-    sdt2 = torch.where(valid2, sigma2 * dt2, 0.0)
+    seg2 = dts[:, None] if dt2 is None else dt2
+    sdt2 = torch.where(valid2, sigma2 * seg2, 0.0)
     cs2 = torch.cumsum(sdt2, dim=-1)
-    trans2 = torch.exp(-(cs2 - sdt2))
+    od2 = cs2 - sdt2
+    if skip2 is not None:
+        od2 = od2 + torch.where(valid2, skip2, 0.0)
+    trans2 = torch.exp(-od2)
     w2 = torch.where(valid2, trans2 * (1.0 - torch.exp(-sdt2)), 0.0)
 
     image = torch.sum(w2[..., None] * rgb2, dim=1)       # [N, 3]
@@ -517,7 +619,8 @@ def _chunk_rays(pose3, intr, idx_c, W: int):
 
 def _chunk_body(field_fn, pose3, intr, frame, perm, count: int, start: int,
                 t0_d, t1_d, dens8, cfg: RenderConfig, *, B: int, W: int,
-                Wb: int, chunk: int, select_cdf=None) -> torch.Tensor:
+                Wb: int, chunk: int, plain_select: bool = False
+                ) -> torch.Tensor:
     """Gather-render-scatter for the live rays perm[start:start+chunk]
     (the last chunk is shorter).  ``frame``'s rgb lanes still hold the
     background of every unwritten ray, so the chunk's bg gather reads
@@ -528,7 +631,7 @@ def _chunk_body(field_fn, pose3, intr, frame, perm, count: int, start: int,
     idx_b = (idx_c // (W * B)) * Wb + (idx_c % W) // B if B > 1 else idx_c
     out = render_rays_proxy(field_fn, dens8, ro, rd, t0_d[idx_b],
                             t1_d[idx_b], cfg, bg_color=bg_c,
-                            select_cdf=select_cdf)
+                            plain_select=plain_select)
     frame[idx_c] = torch.cat([out["image"], out["depth"][:, None],
                               out["weights_sum"][:, None]], dim=-1)
     return frame
@@ -536,14 +639,13 @@ def _chunk_body(field_fn, pose3, intr, frame, perm, count: int, start: int,
 
 def render_image(field_apply, field_static, params, prepass: PrepassState,
                  pose, intrinsics, H: int, W: int, cfg: RenderConfig, *,
-                 bg_color=1.0, select_cdf=None):
+                 bg_color=1.0, plain_select: bool = False):
     """Render a full frame: block prepass, live compaction, one host sync
     for the live count, then a plain loop over chunks of live rays.
 
     field_apply(params, xyzs [M, 3], dirs [M, 3], field_static) ->
     (sigmas [M], rgbs [M, 3]).  ``prepass`` is the grid's
-    ``PrepassState``.  ``select_cdf`` replaces ``proxy_select_cdf`` (to
-    test the kernel against its plain version).
+    ``PrepassState``.  ``plain_select``: see ``render_rays_proxy``.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: live rays rendered, chunks: chunks rendered)."""
@@ -563,8 +665,8 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     if prepass.occ_dil is None or prepass.dens8 is None:
         raise NotImplementedError(
             "render_image: only the proxy path over a single-cascade grid "
-            "with its density is ported; the AABB-hit pool path waits for "
-            "ROADMAP Queue 1, item 4 (occupancy, march and pool)")
+            "with its density is ported; the AABB-hit pool inference path "
+            "waits for ROADMAP Queue 1, item 4 (survivor_pool)")
     pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
     intr_np = np.asarray(intrinsics, np.float32)
     intr = torch.as_tensor(intr_np, device=device)
@@ -596,5 +698,6 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     for c in range(n_chunks):
         frame = _chunk_body(field_fn, pose[:3], intr, frame, perm, count,
                             c * chunk, t0_d, t1_d, prepass.dens8, cfg, B=B,
-                            W=W, Wb=Wb, chunk=chunk, select_cdf=select_cdf)
+                            W=W, Wb=Wb, chunk=chunk,
+                            plain_select=plain_select)
     return out(frame, count, n_chunks)

@@ -5,8 +5,14 @@ emulated in int64); the f32-table encode within 1e-6 (27-term lattice
 sums in another order); the bf16-table encode within 1e-3 (both sides
 round table and weights to bf16 and accumulate in f32, but a last-bit
 difference in a weight can round to a neighbouring bf16 value).
+Row lookups are exact; row scatters and table gradients within 1e-5
+relative to their largest entry (duplicate rows sum in another order);
+the AMP table gradient within 1e-2 of its largest entry (each row's
+cotangent is rounded to bf16 on both sides, from f32 products that may
+differ in the last bit).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +112,103 @@ def test_init_distribution(std):
     assert float(tab.min()) >= -std and float(tab.max()) <= std
     assert abs(float(tab.mean())) < 0.01 * std
     assert abs(float(tab.std()) - std / np.sqrt(3.0)) < 0.01 * std
+
+
+# ---------------------------------------------------------------------------
+# row lookup / scatter (the encode's table backward)
+# ---------------------------------------------------------------------------
+
+R_ROWS, WIDTH = 40, 12
+
+
+def _rows_case(seed, B=300):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(R_ROWS, WIDTH)).astype(np.float32)
+    idx = rng.integers(0, R_ROWS, B).astype(np.int32)   # many duplicates
+    g = rng.normal(size=(B, WIDTH)).astype(np.float32)
+    h = rng.normal(size=(R_ROWS, WIDTH)).astype(np.float32)
+    return table, idx, g, h
+
+
+def _close(got, want, rel):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=rel * max(float(np.abs(want).max()), 1.0))
+
+
+def test_rows_lookup_and_scatter_match_jax_to_second_order():
+    table, idx, g, h = _rows_case(0)
+    tj, ij = jnp.asarray(table), jnp.asarray(idx)
+    it = torch.from_numpy(idx.astype(np.int64))
+
+    def jl(t):
+        return jhp._rows_lookup(t, ij, R_ROWS)
+
+    rows_j, vjp_j = jax.vjp(jl, tj)
+    tt = torch.from_numpy(table).requires_grad_(True)
+    rows_t = thp._rows_lookup(tt, it, R_ROWS)
+    np.testing.assert_array_equal(rows_t.detach().numpy(),
+                                  np.asarray(rows_j))
+    # first order: the lookup's backward is the scatter
+    gt = torch.from_numpy(g).requires_grad_(True)
+    (grad_t,) = torch.autograd.grad(rows_t, tt, gt, create_graph=True)
+    grad_j = vjp_j(jnp.asarray(g))[0]
+    _close(grad_t.detach().numpy(), grad_j, 1e-5)
+    _close(thp._rows_scatter(torch.from_numpy(g), it, R_ROWS).numpy(),
+           jhp._rows_scatter(jnp.asarray(g), ij, R_ROWS), 1e-5)
+    # second order: the scatter's backward is the lookup
+    (gg_t,) = torch.autograd.grad(grad_t, gt, torch.from_numpy(h))
+    gg_j = jax.vjp(lambda c: vjp_j(c)[0], jnp.asarray(g))[1](
+        jnp.asarray(h))[0]
+    np.testing.assert_array_equal(gg_t.numpy(), np.asarray(gg_j))
+    np.testing.assert_array_equal(gg_t.numpy(), h[idx])
+
+
+def test_rows_pair_gradgradcheck_f64():
+    table, idx, g, _ = _rows_case(1, B=30)
+    it = torch.from_numpy(idx.astype(np.int64))
+    t64 = torch.from_numpy(table).double().requires_grad_(True)
+    g64 = torch.from_numpy(g).double().requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda t: thp._rows_lookup(t, it, R_ROWS), (t64,))
+    assert torch.autograd.gradgradcheck(
+        lambda t: thp._rows_lookup(t, it, R_ROWS), (t64,))
+    assert torch.autograd.gradgradcheck(
+        lambda c: thp._rows_scatter(c, it, R_ROWS), (g64,))
+
+
+def test_rows_lookup_amp_matches_jax():
+    table, idx, g, _ = _rows_case(2)
+    ij = jnp.asarray(idx)
+    rows_j, vjp_j = jax.vjp(
+        lambda t: jhp._rows_lookup_amp(t, ij, R_ROWS), jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    rows_t = thp._rows_lookup_amp(tt, torch.from_numpy(idx.astype(np.int64)),
+                                  R_ROWS)
+    assert rows_t.dtype == torch.bfloat16 and rows_j.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(rows_t.detach().float().numpy(),
+                                  np.asarray(rows_j, np.float32))
+    g16 = torch.from_numpy(g).to(torch.bfloat16)
+    rows_t.backward(g16)
+    grad_j = vjp_j(jnp.asarray(g16.float().numpy()).astype(jnp.bfloat16))[0]
+    assert tt.grad.dtype == torch.float32 and grad_j.dtype == jnp.float32
+    _close(tt.grad.numpy(), grad_j, 1e-5)
+
+
+@pytest.mark.parametrize("amp", [False, True])
+def test_encode_table_gradient_matches(amp):
+    t, j = _specs(**SPEC_KW)
+    rng = np.random.default_rng(6)
+    table = rng.uniform(-1.0, 1.0, (t.table_rows, t.storage_width)).astype(
+        np.float32)
+    x = _points(500, 7)
+    c = rng.normal(size=(500, t.output_dim)).astype(np.float32)
+    grad_j = jax.grad(lambda tab: jnp.sum(jhp.packed_encode_bound(
+        jnp.asarray(x), tab, j, amp=amp) * jnp.asarray(c)))(
+            jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    out = thp.packed_encode_bound(torch.from_numpy(x), tt, t, amp=amp)
+    torch.sum(out * torch.from_numpy(c)).backward()
+    grad_j = np.asarray(grad_j)
+    assert np.abs(grad_j).max() > 0.1
+    _close(tt.grad.numpy(), grad_j, 1e-2 if amp else 1e-5)

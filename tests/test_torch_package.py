@@ -12,19 +12,27 @@ import numpy as np
 import pytest
 import torch
 
+from nerf_texture_tpu.data import synthetic as jax_synthetic
 from nerf_texture_tpu.data.poses import orbit_pose as jax_orbit_pose
 from nerf_texture_tpu.data.synthetic import SyntheticSphereDataset
+from nerf_texture_tpu.utils.metrics import psnr as jax_psnr
 from nerf_texture_tpu.models.ngp import NGPConfig as JaxNGPConfig
 from nerf_texture_tpu.ops.hashgrid_packed import (
     PackedGridSpec as JaxPackedGridSpec)
 from nerf_texture_tpu.render.renderer import RenderConfig as JaxRenderConfig
+from nerf_texture_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from nerf_texture_tpu_torch import kernels
+from nerf_texture_tpu_torch.data import synthetic
 from nerf_texture_tpu_torch.data.poses import orbit_pose
+from nerf_texture_tpu_torch.data.rays import sample_ray_indices
 from nerf_texture_tpu_torch.data.synthetic import sphere_intrinsics
 from nerf_texture_tpu_torch.models.ngp import NGPConfig
 from nerf_texture_tpu_torch.ops.hashgrid_packed import PackedGridSpec
-from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
+from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
+                                                     proxy_select_cdf)
 from nerf_texture_tpu_torch.render.renderer import RenderConfig
+from nerf_texture_tpu_torch.train.trainer import TrainConfig
+from nerf_texture_tpu_torch.utils.metrics import psnr
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -54,7 +62,7 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("ours,theirs", [
     (RenderConfig, JaxRenderConfig), (NGPConfig, JaxNGPConfig),
-    (PackedGridSpec, JaxPackedGridSpec)])
+    (PackedGridSpec, JaxPackedGridSpec), (TrainConfig, JaxTrainConfig)])
 def test_config_fields_match_jax(ours, theirs):
     mine = [(f.name, f.default) for f in dataclasses.fields(ours)]
     ref = [(f.name, f.default) for f in dataclasses.fields(theirs)]
@@ -83,11 +91,43 @@ def test_fixtures_match_jax_package():
     np.testing.assert_array_equal(sphere_intrinsics(48, 40), ds.intrinsics)
 
 
+def test_synthetic_dataset_mirrors_jax_package():
+    ours = synthetic.SyntheticSphereDataset(n_frames=3, H=24, W=20, seed=4)
+    theirs = SyntheticSphereDataset(n_frames=3, H=24, W=20, seed=4)
+    assert ours.num_frames == theirs.num_frames == 3
+    assert (ours.H, ours.W, ours.radius, ours.sphere_radius) == \
+        (theirs.H, theirs.W, theirs.radius, theirs.sphere_radius)
+    for name in ("poses", "images", "intrinsics"):
+        a, b = getattr(ours, name), getattr(theirs, name)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert 0 < (ours.images[..., 3] > 0).mean() < 1
+    pts = np.random.default_rng(0).normal(size=(50, 3))
+    np.testing.assert_array_equal(synthetic.sphere_texture(pts),
+                                  jax_synthetic.sphere_texture(pts))
+
+
+def test_ray_sampling_and_psnr():
+    inds, coarse = sample_ray_indices(torch.Generator().manual_seed(0), 8,
+                                      10, 4000)
+    assert coarse is None and inds.dtype == torch.int64
+    assert int(inds.min()) == 0 and int(inds.max()) == 79
+    assert len(torch.unique(inds)) == 80
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sample_ray_indices(torch.Generator(), 8, 10, 4,
+                           error_map=np.ones(16))
+    rng = np.random.default_rng(1)
+    a, b = rng.uniform(size=(2, 6, 5, 3)).astype(np.float32)
+    assert psnr(torch.from_numpy(a), b) == jax_psnr(a, b)
+    assert psnr(a, a) == jax_psnr(a, a) == 99.0
+
+
 def test_no_kernel_no_fallback_on_other_devices():
     sig = torch.ones((4, 8), device="meta")
     t = torch.zeros(4, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        proxy_select_cdf(sig, sig, t, t, cap=2, w_eps=1e-4)
+    for select in (proxy_select_cdf, proxy_select):
+        with pytest.raises(ValueError, match="no kernel"):
+            select(sig, sig, t, t, cap=2, w_eps=1e-4)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,18 +1,19 @@
-"""proxy_select_cdf in the PyTorch port vs the JAX package.
+"""proxy_select_cdf and proxy_select in the PyTorch port vs the JAX package.
 
-The plain PyTorch version (the port's CPU path and the CUDA kernel's
+Each plain PyTorch version (the port's CPU path and the CUDA kernel's
 oracle) is held against the JAX function, whose only implementation is
 the Pallas kernel, run here in interpret mode (its CPU default).  The
-CUDA kernel is held against the plain version on the card by the tests
+CUDA kernels are held against the plain versions on the card by the tests
 marked ``cuda``; they import no JAX, so they also run where JAX is not
 installed (``python -m pytest --noconftest -m cuda
 tests/test_torch_proxy_select.py``).
 
-Tolerances: t values (ts2, dt2) within atol 1e-5 -- both sides use the
-Hillis-Steele scan association, but the exp implementations and the
+Tolerances: t values (ts2, dt2, skip2) within atol 1e-5 -- both sides use
+the Hillis-Steele scan association, but the exp implementations and the
 order of the total's sum differ in the last bits, and a quantile in a
 low-weight bin amplifies that; valid2 exactly (test inputs keep every
-ray's total weight away from w_eps).
+ray's total weight away from w_eps).  The top-k selection copies the
+kept samples' ts, so its ts2 only differs where the selection would.
 """
 
 import numpy as np
@@ -20,11 +21,13 @@ import pytest
 import torch
 
 from nerf_texture_tpu_torch.ops.proxy_select import (
-    cumsum_lanes, proxy_select_cdf, proxy_select_cdf_reference)
+    cumsum_lanes, proxy_select, proxy_select_cdf, proxy_select_cdf_reference,
+    proxy_select_reference)
 
 ATOL = 1e-5
 W_EPS = 1e-4
 CASES = [(64, 32, 8), (33, 16, 4), (130, 24, 4), (50, 20, 6)]
+TOPK_CASES = [(64, 32, 8), (33, 16, 4), (128, 32, 8), (130, 24, 8)]
 
 
 def _inputs(seed, N, K):
@@ -71,6 +74,44 @@ def test_plain_matches_jax_pallas(seed, N, K, cap):
     np.testing.assert_array_equal(valid2, np.asarray(want[2]))
     np.testing.assert_allclose(ts2, np.asarray(want[0]), rtol=0, atol=ATOL)
     np.testing.assert_allclose(dt2, np.asarray(want[1]), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("seed,N,K,cap",
+                         [(i,) + c for i, c in enumerate(TOPK_CASES)])
+def test_topk_plain_matches_jax_pallas(seed, N, K, cap):
+    import jax.numpy as jnp
+
+    from nerf_texture_tpu.ops.proxy_select import proxy_select as jax_select
+
+    args = _inputs(seed, N, K)
+    want = [np.asarray(a) for a in jax_select(
+        *(jnp.asarray(a) for a in args), cap=cap, w_eps=W_EPS)]
+    got = proxy_select(*(torch.from_numpy(a) for a in args), cap=cap,
+                       w_eps=W_EPS)
+    ts2, skip2, valid2 = (g.numpy() for g in got)
+    assert ts2.shape == skip2.shape == valid2.shape == (N, cap)
+    assert valid2.dtype == np.bool_
+    assert valid2.any() and not valid2.all()
+    np.testing.assert_array_equal(valid2, want[2])
+    np.testing.assert_allclose(ts2, want[0], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(skip2, want[1], rtol=0, atol=ATOL)
+    assert not ts2[~valid2].any() and not skip2[~valid2].any()
+
+
+def test_topk_keeps_heaviest_in_t_order():
+    ts, sig, t_lo, t_hi = _inputs(3, 200, 24)
+    ts2, skip2, valid2 = proxy_select_reference(
+        *(torch.from_numpy(a) for a in (ts, sig, t_lo, t_hi)), cap=8,
+        w_eps=W_EPS)
+    assert not bool(valid2[:100].any())      # degenerate spans, empty rays
+    kept = valid2.sum(-1)
+    # slots fill from the front, in t order, with samples of the ray
+    assert bool((valid2[:, 1:] <= valid2[:, :-1]).all())
+    assert bool(((ts2[:, 1:] > ts2[:, :-1]) | ~valid2[:, 1:]).all())
+    assert bool((kept[100:] == 8).any()) and bool((skip2 >= 0).all())
+    row = 150
+    n = int(kept[row])
+    assert set(ts2[row, :n].tolist()) <= set(ts[row].tolist())
 
 
 def test_cumsum_lanes_is_a_cumsum():
@@ -135,3 +176,38 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     sig = torch.ones((24, 4), device=cuda_device).t()
     with pytest.raises(ValueError, match="contiguous"):
         proxy_select_cdf(sig, sig, t, t + 1, cap=4, w_eps=W_EPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,N,K,cap",
+                         [(i,) + c for i, c in enumerate(
+                             TOPK_CASES + [(16384, 24, 8), (8192, 32, 8),
+                                           (8192, 16, 4)])])
+def test_topk_kernel_matches_plain(cuda_device, seed, N, K, cap):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _inputs(seed, N, K)]
+    before = proxy_select.launches
+    got = proxy_select(*args, cap=cap, w_eps=W_EPS)
+    want = proxy_select_reference(*args, cap=cap, w_eps=W_EPS)
+    torch.cuda.synchronize()
+    assert proxy_select.launches == before + 1
+    assert got[2].dtype == torch.bool and got[2].shape == (N, cap)
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=ATOL)
+    off = ~got[2]
+    assert not bool(got[0][off].any()) and not bool(got[1][off].any())
+
+
+@pytest.mark.cuda
+def test_topk_kernel_rejects_what_it_cannot_take(cuda_device):
+    sig = torch.ones((4, 40), device=cuda_device)
+    t = torch.zeros(4, device=cuda_device)
+    with pytest.raises(ValueError, match="limit of 32"):
+        proxy_select(sig, sig, t, t + 1, cap=4, w_eps=W_EPS)
+    sig = torch.ones((4, 24), device=cuda_device)
+    with pytest.raises(ValueError, match="cap=25"):
+        proxy_select(sig, sig, t, t + 1, cap=25, w_eps=W_EPS)
+    with pytest.raises(ValueError, match="shape"):
+        proxy_select(sig[:, :20].contiguous(), sig, t, t + 1, cap=4,
+                     w_eps=W_EPS)

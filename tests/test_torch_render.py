@@ -6,12 +6,14 @@ Tolerances, each with its reason:
   sets, 3x3 max) exactly;
 - rays, slab test, proxy density and prepass windows within 1e-5 (f32
   elementwise chains; t values are O(1));
-- render_rays_proxy on a toy field within 1e-4: the survivor t's agree
-  within 1e-5 (test_torch_proxy_select.py) and the field is smooth;
-- the whole slice (image): PSNR >= 45 dB, max abs error <= 5e-2, live
-  pixels differing <= 0.5% -- both sides round MLP activations and table
-  products to bf16, a last-bit difference can round to the neighbouring
-  bf16 value, and a prepass hit test on a cell border can flip a block.
+- render_rays_proxy on a toy field within 1e-4, with either selection:
+  the survivor t's agree within 1e-5 (test_torch_proxy_select.py) and
+  the field is smooth;
+- the whole slice (image), with either selection: PSNR >= 45 dB, max abs
+  error <= 5e-2, live pixels differing <= 0.5% -- both sides round MLP
+  activations and table products to bf16, a last-bit difference can
+  round to the neighbouring bf16 value, and a prepass hit test on a cell
+  border can flip a block.
 """
 
 import dataclasses
@@ -123,26 +125,52 @@ def test_corner_table_and_proxy_sigma_match():
                                atol=1e-5)
 
 
-def test_render_rays_proxy_matches_on_toy_field():
+def _toy_proxy_render(**change):
+    """render_rays_proxy of both packages on the toy shell field."""
     H = 32
     dens = _toy_density(H)
     o, d = _rays(200, 2)
     aabb = np.array([-0.6] * 3 + [0.6] * 3, np.float32)
     n_j, f_j = jax_near_far(jnp.asarray(o), jnp.asarray(d),
                             jnp.asarray(aabb), 0.2)
-    kw = dict(PROXY_KW, grid_size=H)
+    kw = dict(PROXY_KW, grid_size=H, **change)
     out_j = jr.render_rays_proxy(
         _toy_field_jax, jr.density_corner_table(jnp.asarray(dens), H),
         jnp.asarray(o), jnp.asarray(d), n_j, f_j, jr.RenderConfig(**kw))
     out_t = tr.render_rays_proxy(
         _toy_field_torch, tr.density_corner_table(_t(dens), H), _t(o),
         _t(d), _t(n_j), _t(f_j), tr.RenderConfig(**kw))
+    return out_t, out_j
+
+
+def _assert_proxy_render_close(out_t, out_j):
     assert float(out_t["weights_sum"].max()) > 0.9   # rays hit the shell
     for k in ("image", "depth", "weights_sum"):
         np.testing.assert_allclose(_np(out_t[k]), np.asarray(out_j[k]),
                                    rtol=0, atol=1e-4)
     np.testing.assert_array_equal(_np(out_t["counts"]),
                                   np.asarray(out_j["counts"]))
+
+
+def test_render_rays_proxy_matches_on_toy_field():
+    _assert_proxy_render_close(*_toy_proxy_render())
+
+
+def test_render_rays_proxy_topk_matches_on_toy_field():
+    out_t, out_j = _toy_proxy_render(infer_cdf=False, infer_color_cap=8)
+    _assert_proxy_render_close(out_t, out_j)
+    assert int(_np(out_t["counts"]).max()) == 8
+
+
+def test_proxy_pallas_off_takes_topk_and_warns():
+    with pytest.warns(UserWarning, match="requires proxy_pallas"):
+        off_t, off_j = _toy_proxy_render(proxy_pallas=False,
+                                         infer_color_cap=8)
+    topk_t, _ = _toy_proxy_render(infer_cdf=False, infer_color_cap=8)
+    for k in ("image", "depth", "weights_sum", "counts"):
+        assert torch.equal(off_t[k], topk_t[k])
+    # JAX's XLA chain (jnp.cumsum) has the Pallas kernel's semantics
+    _assert_proxy_render_close(off_t, off_j)
 
 
 @pytest.mark.parametrize("grid", [32, 64])
@@ -229,7 +257,7 @@ NGP_KW = dict(bound=1.0, num_levels=4, level_dim=4, log2_bricks=10,
 SLICE_RENDER = dict(grid_size=32, ray_chunk=1024, **PROXY_KW)
 
 
-def test_whole_slice_matches_jax_render_image():
+def _whole_slice(**change):
     H = W = 64
     jm = jngp.NGPConfig(**NGP_KW)
     p = jax.tree.map(np.asarray, jngp.init(jax.random.PRNGKey(0), jm))
@@ -237,15 +265,15 @@ def test_whole_slice_matches_jax_render_image():
     occ = shell_occupancy(SLICE_RENDER["grid_size"])
     intr = sphere_intrinsics(H, W)
     pose = orbit_pose(1.2, 0.7, 2.0)     # not a training pose
+    kw = dict(SLICE_RENDER, **change)
     want = jr.render_image(
         jax_field_apply, jm, jax.tree.map(jnp.asarray, p),
         jnp.asarray(occ.occ.numpy()), pose, intr, H, W,
-        jr.RenderConfig(**SLICE_RENDER), sigma_apply=jax_sigma_apply,
+        jr.RenderConfig(**kw), sigma_apply=jax_sigma_apply,
         color_apply=jax_color_apply,
         density=jnp.asarray(occ.density.numpy()))
     got = render_frame(params_from_jax(p), occ, pose, intr, H, W,
-                       tngp.NGPConfig(**NGP_KW),
-                       tr.RenderConfig(**SLICE_RENDER))
+                       tngp.NGPConfig(**NGP_KW), tr.RenderConfig(**kw))
     img_t, img_j = _np(got["image"]), np.asarray(want["image"])
     assert img_t.shape == (H, W, 3)
     live_t = _np(got["weights_sum"]) > 0
@@ -258,6 +286,14 @@ def test_whole_slice_matches_jax_render_image():
     assert -10 * np.log10(np.mean(err ** 2) + 1e-20) >= 45.0
     np.testing.assert_allclose(_np(got["depth"]), np.asarray(want["depth"]),
                                rtol=0, atol=5e-2)
+
+
+def test_whole_slice_matches_jax_render_image():
+    _whole_slice()
+
+
+def test_whole_slice_topk_matches_jax_render_image():
+    _whole_slice(infer_cdf=False, infer_color_cap=8)
 
 
 def test_empty_grid_renders_background():
@@ -278,11 +314,9 @@ def test_unported_branches_raise():
     mcfg = tngp.NGPConfig(**NGP_KW)
     params = tngp.init(torch.Generator().manual_seed(0), mcfg)
     base = tr.RenderConfig(grid_size=16, **PROXY_KW)
-    for change in (dict(proxy_samples=32), dict(infer_cdf=False),
-                   dict(proxy_pallas=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_frame(params, occ, pose, intr, 16, 16, mcfg,
-                         dataclasses.replace(base, **change))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_frame(params, occ, pose, intr, 16, 16, mcfg,
+                     dataclasses.replace(base, proxy_samples=32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(params, occ, pose, intr, 16, 16, mcfg,
                      dataclasses.replace(base, deferred=True))
