@@ -1,9 +1,14 @@
 """Convert JAX states, given as numpy arrays, into the port's tensors.
 
 The layouts stay as they are at this boundary, so rows and cells map one
-to one: the packed hash table is ``[table_rows, storage_width]``, MLP
+to one: the packed hash table is ``[table_rows, storage_width]`` (the
+curved model's dual table ``[table_rows, dual_storage_width]``), MLP
 weights are ``[in, out]``, the occupancy grid is C-order
-``[cascade, H**3]``.  A JAX pytree is turned into numpy on the JAX side
+``[cascade, H**3]``, the anchor table ``[H, H, H, 16]``.  The curved
+param tree (``field.encoder``, ``field.clusters``,
+``field.normal.{phi_grid, phi_net, theta_net}``, ``sigma_net``,
+``light.{env_shs, brdf_net}``) converts with ``params_from_jax`` as it
+is.  A JAX pytree is turned into numpy on the JAX side
 (``jax.tree.map(np.asarray, params)``); nothing here imports jax.
 """
 

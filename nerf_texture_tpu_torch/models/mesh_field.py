@@ -1,0 +1,282 @@
+"""MeshFeatureField: the NeRF-Texture surface field (port of the serving
+path of ``nerf_texture_tpu/models/mesh_field.py``).
+
+A point x maps to (surface-feature embedding || height embedding, coarse
+normal, fine normal, shell mask).  The surface near x is the tangent
+plane of x's anchor frame (p0, normal n, tbn, hit; see
+``geometry.projector``): h = (x - p0) . n is the signed height, p_sur =
+x - h n the surface point, the packed hash grid encodes p_sur and the
+frequency encoding encodes h.  With the probabilistic model the table
+is dual (feature mean + log-variance per brick row) and, outside
+inference, the features get reparameterised noise; the noise is an
+argument here (the JAX function draws it from its key), so that a test
+can hand the port JAX's draw.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+the exact per-sample projection (``mode='none'`` without frames, item
+7), the import modes (item 11.2), the vertex-feature encoder (item 8)
+and the regularisers (item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from ..geometry.projector import MeshProjector, ProjectorArrays
+from ..ops.encoding import freq_encode, freq_encode_dim
+from ..ops.hashgrid_packed import (PackedGridSpec, packed_encode_bound,
+                                   packed_encode_bound_dual)
+from . import normal_net
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshFieldConfig:
+    """Every field of the JAX MeshFieldConfig, so configurations convert;
+    see the JAX module for what each one does."""
+
+    num_levels: int = 8
+    level_dim: int = 2
+    base_resolution: int = 512
+    desired_resolution: int = 1024
+    log2_bricks: int = 16
+    infer_table_bf16: bool = True
+    train_table_bf16: bool = True
+    h_threshold: float = 0.1
+    k: int = 8
+    k_for_uv: int = 5
+    bound: float = 1.0
+    clustering: bool = True
+    prob_model: bool = True
+    logvar_init: float = -8.0
+    pred_normal: bool = True
+    lip: bool = True
+    pattern_rate: float = 1 / 50
+    z_multires: int = 12
+    bound_output_normal: bool = False
+    n_clusters: int = 4
+    per_ray_projection: bool = True
+    encoder_type: str = "hash"
+    feature_dim: int = 16
+    vertex_multires: int = 8
+    n_feature_vertices: int = 0
+    level_num: int = 1
+    base_vnum: int = 4096
+    target_vnum: int = 128 ** 2
+
+    @property
+    def feature_spec(self) -> PackedGridSpec:
+        return PackedGridSpec(
+            input_dim=3, num_levels=self.num_levels,
+            level_dim=self.level_dim,
+            base_resolution=self.base_resolution,
+            desired_resolution=self.desired_resolution,
+            log2_bricks=self.log2_bricks, align_corners=True)
+
+    @property
+    def encoder_f_out_dim(self) -> int:
+        if self.encoder_type == "vertex":
+            return freq_encode_dim(self.feature_dim, self.vertex_multires)
+        return self.num_levels * self.level_dim
+
+    @property
+    def encoder_z_out_dim(self) -> int:
+        return freq_encode_dim(1, self.z_multires)
+
+    @property
+    def embed_dim(self) -> int:
+        return self.encoder_f_out_dim + self.encoder_z_out_dim
+
+    @property
+    def normal_cfg(self) -> normal_net.NormalNetConfig:
+        return normal_net.NormalNetConfig(
+            x_dim=self.encoder_f_out_dim, z_dim=self.encoder_z_out_dim,
+            lip=self.lip, bound_output=self.bound_output_normal,
+            bound=self.bound)
+
+
+class FieldRuntime(NamedTuple):
+    """Interactive scalars (viewer sliders)."""
+
+    sdf_scale_factor: float
+    sdf_offset: float
+    uv_utilize_rate: float
+    fc_weight: float | None = None   # fine/coarse normal blend
+
+    @staticmethod
+    def default() -> "FieldRuntime":
+        return FieldRuntime(sdf_scale_factor=1.0, sdf_offset=0.0,
+                            uv_utilize_rate=1.0, fc_weight=1.0)
+
+
+class ImportedData(NamedTuple):
+    """Tensors of the import modes (size-1 placeholders when unused)."""
+
+    features_2d: torch.Tensor       # [H, W, C] synthesised canvas
+    phi_embed_2d: torch.Tensor      # [H, W, P]
+    local_tbn_2d: torch.Tensor      # [H, W, 9]
+    sample_tbn_ids_2d: torch.Tensor  # [H, W] int64
+    sample_tbn_inv: torch.Tensor    # [S, 3, 3]
+    bounds: torch.Tensor            # [2]
+    features_v: torch.Tensor        # [V, C] per-point features
+    phi_embed_v: torch.Tensor       # [V, P]
+    local_tbn_v: torch.Tensor       # [V, 3, 3]
+
+    @staticmethod
+    def empty(device: torch.device | str = "cpu") -> "ImportedData":
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        eye = torch.eye(3, device=device)[None]
+        return ImportedData(z(1, 1, 1), z(1, 1, 1), z(1, 1, 9),
+                            z(1, 1, dtype=torch.int64), eye,
+                            torch.ones((2,), device=device), z(1, 1),
+                            z(1, 1), eye)
+
+
+class MeshFieldState(NamedTuple):
+    projector: ProjectorArrays            # base / template mesh
+    projector_imported: ProjectorArrays   # imported mesh (or base copy)
+    imported: ImportedData
+    projector_fea: ProjectorArrays | None = None
+
+
+def make_state(mesh_projector: MeshProjector,
+               imported_projector: MeshProjector | None = None,
+               imported: ImportedData | None = None,
+               fea_projector: MeshProjector | None = None
+               ) -> MeshFieldState:
+    """The field's geometry state, on the projector's device."""
+    return MeshFieldState(
+        projector=mesh_projector.arrays,
+        projector_imported=(imported_projector.arrays
+                            if imported_projector is not None
+                            else mesh_projector.arrays),
+        imported=(imported if imported is not None
+                  else ImportedData.empty(mesh_projector.device)),
+        projector_fea=(fea_projector.arrays
+                       if fea_projector is not None else None))
+
+
+def init(generator: torch.Generator, cfg: MeshFieldConfig) -> dict[str, Any]:
+    """Seeded params on the generator's device: the hash encoder's table
+    (dual with ``prob_model``: means U(-1e-4, 1e-4), log-variances
+    logvar_init + U(-1e-5, 1e-5)), the cluster centres and the normal
+    net."""
+    if cfg.encoder_type != "hash":
+        raise NotImplementedError(
+            "mesh_field.init: the vertex-feature encoder is not ported; "
+            "ROADMAP Queue 1, item 8")
+    spec = cfg.feature_spec
+    if cfg.prob_model:
+        params: dict[str, Any] = {"encoder": spec.init_dual(
+            generator, std_a=1e-4, std_b=1e-5, mean_b=cfg.logvar_init)}
+    else:
+        params = {"encoder": spec.init(generator)}
+    if cfg.clustering:
+        u = torch.rand((cfg.num_levels, cfg.n_clusters, cfg.level_dim),
+                       generator=generator, device=generator.device)
+        params["clusters"] = u * 2e-4 - 1e-4
+    if cfg.pred_normal:
+        params["normal"] = normal_net.init(generator, cfg.normal_cfg)
+    return params
+
+
+class FieldOutput(NamedTuple):
+    embed: torch.Tensor           # [N, F + Z]
+    normal_coarse: torch.Tensor   # [N, 3]
+    normal_fine: torch.Tensor     # [N, 3] (coarse copy without pred_normal)
+    h_mask: torch.Tensor          # [N] bool
+    phi_embed: torch.Tensor | None = None
+    theta: torch.Tensor | None = None
+    phi: torch.Tensor | None = None
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-5)
+
+
+def apply(params, state: MeshFieldState, x: torch.Tensor,
+          cfg: MeshFieldConfig, rt: FieldRuntime | None = None, *,
+          mode: str = "none", noise: torch.Tensor | None = None,
+          no_noise: bool = False, requires_grad_xyz: bool = False,
+          return_phi_embed: bool = False, return_rot_angles: bool = False,
+          need_normals: bool = True, frames=None) -> FieldOutput:
+    """Evaluate the field at x [N, 3] in [-bound, bound] through the
+    anchor frames ``frames`` (dict p0 / normal / tbn / hit at sample
+    granularity).
+
+    Without ``no_noise`` and with ``prob_model`` the features get
+    ``noise * exp(clamp(log_var, -20, 2))``, where noise [N, L * C] is a
+    standard normal draw.  The hash table is read through bf16 rows
+    (``infer_table_bf16`` without noise, ``train_table_bf16`` with it);
+    a bf16 inference table (``hashgrid_packed.inference_table``) is read
+    as it is.  ``requires_grad_xyz`` only matters to the exact
+    projection: through frames, h and p_sur are closed-form in x."""
+    if mode != "none":
+        raise NotImplementedError(
+            f"mesh_field.apply: import mode {mode!r} is not ported; ROADMAP "
+            f"Queue 1, item 11.2")
+    if cfg.encoder_type != "hash":
+        raise NotImplementedError(
+            "mesh_field.apply: the vertex-feature encoder is not ported; "
+            "ROADMAP Queue 1, item 8")
+    if frames is None:
+        raise NotImplementedError(
+            "mesh_field.apply: mode 'none' without anchor frames needs the "
+            "exact per-sample projection, which is not ported; ROADMAP "
+            "Queue 1, item 7")
+    ncfg = cfg.normal_cfg
+    n = frames["normal"].detach()
+    p0 = frames["p0"].detach()
+    h = torch.sum((x - p0) * n, dim=-1, keepdim=True)
+    p_sur = x - h * n
+    h_mask = (torch.abs(h[..., 0]) < cfg.h_threshold) & frames["hit"]
+    local_tbn = frames["tbn"]
+    amp = cfg.infer_table_bf16 if no_noise else cfg.train_table_bf16
+    if cfg.prob_model and not no_noise:
+        if noise is None:
+            raise ValueError("mesh_field.apply: the probabilistic features "
+                             "need a noise draw (or no_noise=True)")
+        x_embed, log_var = packed_encode_bound_dual(
+            p_sur, params["encoder"], cfg.feature_spec, bound=cfg.bound,
+            amp=amp)
+        # the exponent is clamped: an untied log-variance lane drifting
+        # high would overflow exp and NaN the frame
+        x_embed = x_embed + noise * torch.exp(torch.clamp(log_var, -20.0,
+                                                          2.0))
+    else:
+        x_embed = packed_encode_bound(p_sur, params["encoder"],
+                                      cfg.feature_spec, bound=cfg.bound,
+                                      amp=amp)
+    z_embed = freq_encode(h, cfg.z_multires)
+    phi_embed = theta = phi_angle = normal_fine_local = None
+    if cfg.pred_normal and need_normals:
+        phi_embed = normal_net.phi_embedding(params["normal"], p_sur, ncfg,
+                                             amp=amp)
+        if return_rot_angles:
+            theta, phi_angle = normal_net.apply(
+                params["normal"], z_embed, x_embed, ncfg,
+                phi_embed=phi_embed, return_rot_angles=True)
+        normal_fine_local = normal_net.apply(params["normal"], z_embed,
+                                             x_embed, ncfg,
+                                             phi_embed=phi_embed)
+    embed = torch.cat([x_embed, z_embed], dim=-1)
+    normal_coarse = _normalize(n)
+    if normal_fine_local is not None:
+        normal_fine = _normalize(torch.einsum("nba,nb->na", local_tbn,
+                                              normal_fine_local))
+    else:
+        normal_fine = normal_coarse
+    return FieldOutput(embed=embed, normal_coarse=normal_coarse,
+                       normal_fine=normal_fine, h_mask=h_mask,
+                       phi_embed=phi_embed if return_phi_embed else None,
+                       theta=theta, phi=phi_angle)
+
+
+def regular_loss(params, cfg: MeshFieldConfig, key=None):
+    raise NotImplementedError(
+        "mesh_field.regular_loss (clustering / KL regularisers) belongs to "
+        "curved training; ROADMAP Queue 1, item 9")

@@ -1,11 +1,42 @@
-"""Spherical-harmonics direction encoding (port of the SH half of
-``nerf_texture_tpu/ops/encoding.py``)."""
+"""Coordinate encodings (port of ``nerf_texture_tpu/ops/encoding.py``):
+the NeRF frequency encoding and the real spherical-harmonics basis."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def freq_encode(x: torch.Tensor, n_freqs: int,
+                max_freq_log2: float | None = None,
+                include_input: bool = True,
+                log_sampling: bool = True) -> torch.Tensor:
+    """[x, sin(f0 x), cos(f0 x), sin(f1 x), ...] over the last axis, with
+    bands 2**linspace(0, max_freq_log2, n_freqs) (log-spaced) or
+    linspace(1, 2**max_freq_log2, n_freqs); [..., D] ->
+    [..., D * (include_input + 2 n_freqs)]."""
+    if max_freq_log2 is None:
+        max_freq_log2 = n_freqs - 1
+    if log_sampling:
+        bands = [2.0 ** f for f in
+                 (np.linspace(0.0, max_freq_log2, n_freqs).tolist()
+                  if n_freqs > 1 else [0.0])]
+    else:
+        bands = np.linspace(2.0 ** 0.0, 2.0 ** max_freq_log2,
+                            n_freqs).tolist()
+    out = [x] if include_input else []
+    for f in bands:
+        xf = x * f
+        out.append(torch.sin(xf))
+        out.append(torch.cos(xf))
+    return torch.cat(out, dim=-1)
+
+
+def freq_encode_dim(input_dim: int, n_freqs: int,
+                    include_input: bool = True) -> int:
+    return input_dim * ((1 if include_input else 0) + 2 * n_freqs)
 
 
 def _double_factorial(n: int) -> int:

@@ -121,6 +121,26 @@ class PackedGridSpec:
                        generator=generator, device=generator.device)
         return u * (2.0 * std) - std
 
+    @property
+    def dual_storage_width(self) -> int:
+        """Lanes of a table that co-stores a second channel group per
+        brick (feature mean + log-variance): group A in [0, row_width),
+        group B in [row_width, 2 row_width), padded to 128 lanes."""
+        return int(math.ceil(2 * self.row_width / 128) * 128)
+
+    def init_dual(self, generator: torch.Generator, std_a: float = 1e-4,
+                  std_b: float = 1e-5, mean_b: float = 0.0) -> torch.Tensor:
+        """Dual table [table_rows, dual_storage_width] on the generator's
+        device: group A U(-std_a, std_a), group B and the padding lanes
+        mean_b + U(-std_b, std_b)."""
+        rw, sw = self.row_width, self.dual_storage_width
+        dev = generator.device
+        a = torch.rand((self.table_rows, rw), generator=generator,
+                       device=dev) * (2.0 * std_a) - std_a
+        b = torch.rand((self.table_rows, sw - rw), generator=generator,
+                       device=dev) * (2.0 * std_b) - std_b + mean_b
+        return torch.cat([a, b], dim=-1)
+
 
 # ---------------------------------------------------------------------------
 # row lookup with a scatter backward
@@ -244,17 +264,11 @@ def _indices_weights(spec: PackedGridSpec, x: torch.Tensor):
     return torch.cat(all_idx), torch.stack(all_w), oob
 
 
-def packed_encode(inputs: torch.Tensor, table: torch.Tensor,
-                  spec: PackedGridSpec, amp: bool = False) -> torch.Tensor:
-    """Encode [..., D] points in [0, 1] -> [..., L * C] f32 features
-    (level-major), zero outside the unit cube.
-
-    ``table`` is the f32 storage table [rows, storage_width] or an
-    inference table in bf16 (any width >= row_width, see
-    ``inference_table``).  ``amp`` reads an f32 table through bf16 rows
-    (``_rows_lookup_amp``).  Whenever the rows are bf16 the lattice
-    weights are rounded to bf16 too and the products accumulate in f32,
-    as the JAX bf16 einsum with preferred_element_type=f32 does."""
+def _encode_groups(inputs: torch.Tensor, table: torch.Tensor,
+                   spec: PackedGridSpec, amp: bool, groups: int):
+    """The encode of ``groups`` channel groups that share each brick row
+    (group g in lanes [g row_width, (g + 1) row_width)): one row gather,
+    the lattice-weighted sum per group; a list of [..., L * C] f32."""
     D = spec.input_dim
     C = spec.level_dim
     L = spec.num_levels
@@ -266,14 +280,48 @@ def packed_encode(inputs: torch.Tensor, table: torch.Tensor,
         rows = _rows_lookup_amp(table, idx, spec.table_rows)
     else:
         rows = _rows_lookup(table, idx, spec.table_rows)
-    rows = rows[:, :spec.row_width].reshape(L * B, spec.lattice, C)
-    w = w.reshape(L * B, spec.lattice, 1)
+    rows = rows[:, :groups * spec.row_width].reshape(L * B, groups,
+                                                      spec.lattice, C)
+    w = w.reshape(L * B, 1, spec.lattice, 1)
     if rows.dtype == torch.bfloat16:
         w = w.to(torch.bfloat16).to(torch.float32)
-    out = torch.sum(w * rows.to(torch.float32), dim=1)     # [L*B, C]
-    out = out.reshape(L, B, C).transpose(0, 1).reshape(B, spec.output_dim)
-    out = torch.where(oob, 0.0, out)
-    return out.reshape(*prefix, spec.output_dim)
+    out = torch.sum(w * rows.to(torch.float32), dim=2)     # [L*B, g, C]
+    out = out.reshape(L, B, groups, C).permute(2, 1, 0, 3)
+    out = out.reshape(groups, B, spec.output_dim)          # level-major
+    out = torch.where(oob[None], 0.0, out)
+    return [o.reshape(*prefix, spec.output_dim) for o in out]
+
+
+def packed_encode(inputs: torch.Tensor, table: torch.Tensor,
+                  spec: PackedGridSpec, amp: bool = False) -> torch.Tensor:
+    """Encode [..., D] points in [0, 1] -> [..., L * C] f32 features
+    (level-major), zero outside the unit cube.
+
+    ``table`` is the f32 storage table [rows, storage_width] or an
+    inference table in bf16 (any width >= row_width, see
+    ``inference_table``).  ``amp`` reads an f32 table through bf16 rows
+    (``_rows_lookup_amp``).  Whenever the rows are bf16 the lattice
+    weights are rounded to bf16 too and the products accumulate in f32,
+    as the JAX bf16 einsum with preferred_element_type=f32 does."""
+    return _encode_groups(inputs, table, spec, amp, 1)[0]
+
+
+def packed_encode_dual(inputs: torch.Tensor, table: torch.Tensor,
+                       spec: PackedGridSpec, amp: bool = False):
+    """Encode through a dual table (``init_dual``): ONE row gather gives
+    (group_a [..., L * C], group_b [..., L * C]) -- the feature mean and
+    log-variance of the curved model's probabilistic features.  ``amp``
+    as in ``packed_encode``."""
+    a, b = _encode_groups(inputs, table, spec, amp, 2)
+    return a, b
+
+
+def packed_encode_bound_dual(inputs: torch.Tensor, table: torch.Tensor,
+                             spec: PackedGridSpec, bound: float = 1.0,
+                             amp: bool = False):
+    """Dual-group encode of points given in [-bound, bound]."""
+    return packed_encode_dual((inputs + bound) / (2.0 * bound), table, spec,
+                              amp=amp)
 
 
 def packed_encode_bound(inputs: torch.Tensor, table: torch.Tensor,
@@ -288,5 +336,7 @@ def inference_table(table: torch.Tensor,
                     spec: PackedGridSpec) -> torch.Tensor:
     """The bf16 [rows, row_width] copy of a storage table that inference
     gathers from: half the bytes of each row, and none of the padding
-    lanes.  Made once per set of parameters, not once per chunk."""
+    lanes.  Made once per set of parameters, not once per chunk.  Of a
+    dual table it keeps group A (the means), which is all that the
+    noise-free encode reads."""
     return table[:, :spec.row_width].to(torch.bfloat16).contiguous()

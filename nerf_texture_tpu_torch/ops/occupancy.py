@@ -7,6 +7,10 @@ density at one jittered point per cell (all cells, or in partial mode a
 quarter uniform and a quarter occupied), merges it into an EMA and
 thresholds it.  Its random draws come from ``grid_draws`` (or from the
 caller), so that a test can hand the port the JAX package's draws.
+
+``update_host_sparse`` is the curved model's refresh: only the
+near-surface cells are queried (the field is zero outside its thin
+shell), chunk by chunk, with the jitter of ``sparse_draws``.
 """
 
 from __future__ import annotations
@@ -86,6 +90,56 @@ def _cell_points(coords, cas: int, grid_size: int, bound: float):
     half = cas_bound / H
     xyz = 2.0 * (coords.to(torch.float32) + 0.5) / H - 1.0
     return xyz * (cas_bound - half) / (1.0 - 1.0 / H)
+
+
+def cell_points(cell_ids: torch.Tensor, noise: torch.Tensor, *,
+                grid_size: int, cas: int, bound: float) -> torch.Tensor:
+    """Jittered cell-centre points [n, 3] of flat cell ids [n] of cascade
+    ``cas``; noise [n, 3] is the jitter in [-half, half) (the JAX
+    function draws it from its key)."""
+    H = grid_size
+    coords = torch.stack([cell_ids // (H * H), (cell_ids // H) % H,
+                          cell_ids % H], dim=-1)
+    return _cell_points(coords, cas, H, bound) + noise
+
+
+def sparse_draws(generator: torch.Generator, n_cells: int, *,
+                 grid_size: int, cascades: int,
+                 bound: float) -> list[torch.Tensor]:
+    """The jitter of one ``update_host_sparse``: per cascade, [n_cells, 3]
+    uniform in [-half, half), on the generator's device."""
+    out = []
+    for cas in range(cascades):
+        half = min(2 ** cas, bound) / grid_size
+        u = torch.rand((n_cells, 3), generator=generator,
+                       device=generator.device)
+        out.append(u * (2.0 * half) - half)
+    return out
+
+
+@torch.no_grad()
+def update_host_sparse(state: OccupancyGrid, chunk_sigma_fn, draws,
+                       cell_ids: torch.Tensor, *, grid_size: int,
+                       cascades: int, density_thresh: float = 0.01,
+                       decay: float = 0.95,
+                       chunk: int = 65536) -> OccupancyGrid:
+    """Full refresh restricted to the near-surface cells ``cell_ids`` [n]
+    (int64, on the grid's device); every other cell's new density is 0
+    (outside the shell), so the EMA still sees a full update.
+
+    chunk_sigma_fn(ids [c], noise [c, 3], cas) -> [c] scaled sigmas, over
+    slices of ``chunk`` cells; draws: per cascade, [n, 3] jitter
+    (``sparse_draws``)."""
+    H = grid_size
+    tmp = torch.zeros((cascades, H ** 3), dtype=torch.float32,
+                      device=state.density.device)
+    n = cell_ids.shape[0]
+    for cas in range(cascades):
+        for start in range(0, n, chunk):
+            ids = cell_ids[start:start + chunk]
+            tmp[cas, ids] = chunk_sigma_fn(
+                ids, draws[cas][start:start + chunk], cas).reshape(-1)
+    return _finalize_update(state, tmp, decay, density_thresh)
 
 
 def _chunked_density(density_fn, pts, chunk: int):

@@ -8,7 +8,9 @@ result.  Compositing over the pool uses segmented exclusive cumsums
 plain backward would be an [M]-row scatter, has a custom backward that
 sums segments with a cumsum and two boundary gathers.
 
-``survivor_pool`` (the two-phase pool inference) is not ported yet.
+``survivor_pool`` is the second-level compaction of the two-phase pool
+render: the slots whose compositing weight survives the threshold,
+capped per ray, which the colour phase then shades.
 """
 
 from __future__ import annotations
@@ -97,6 +99,65 @@ class _SegBroadcastFn(torch.autograd.Function):
 
 
 seg_broadcast = _SegBroadcastFn.apply
+
+
+class SurvivorPool(NamedTuple):
+    """The pool slots whose weight survives, capped per ray."""
+
+    idx: torch.Tensor      # [M2] source slot in the parent pool
+    ray_id: torch.Tensor   # [M2] owning ray (N for padding)
+    valid: torch.Tensor    # [M2] bool
+    offsets: torch.Tensor  # [N + 1] segment bounds
+
+
+def survivor_pool(flat: FlatSamples, w, n_rays: int, cap: int,
+                  w_eps: float, trans=None,
+                  t_eps: float = 1e-4) -> SurvivorPool:
+    """Compact the pool slots with weight > w_eps (and transmittance >
+    t_eps, the ray-kill threshold), at most ``cap`` per ray, into a pool
+    of n_rays * cap slots.
+
+    A ray over its cap keeps its ``cap`` highest weights (in t order;
+    the JAX function's ``rank_by_weight``, which no caller turns off):
+    the cap-th largest weight of each ray comes
+    from a top-k over the dense [N, Kp] view of the pool (flatten_samples
+    caps every segment at Kp = M // N, so the view is exact) and only its
+    value is used, so ties do not matter; weight ties at the cap are cut
+    in t order.  The kept slots are front-compacted by a stable argsort,
+    so the result stays segment-contiguous."""
+    N = n_rays
+    M2 = N * cap
+    M = flat.ts.shape[0]
+    dev = flat.ts.device
+    surv = flat.valid & (w > w_eps)
+    if trans is not None:
+        surv = surv & (trans > t_eps)
+    if M // N > cap:
+        Kp = M // N
+        col = torch.arange(Kp, device=dev)
+        dense_idx = torch.clamp(flat.offsets[:-1, None] + col[None],
+                                max=M - 1)
+        lens = (flat.offsets[1:] - flat.offsets[:-1])[:, None]
+        dense_w = torch.where((col[None] < lens) & surv[dense_idx],
+                              w[dense_idx], 0.0)               # [N, Kp]
+        kth = torch.topk(dense_w, cap, dim=-1).values[:, -1]   # [N]
+        surv = surv & (w >= seg_broadcast(kth, flat.ray_id, flat.offsets))
+    si = surv.to(torch.int64)
+    # rank of each survivor within its ray (front to back)
+    cs = torch.cumsum(si, 0)
+    excl = cs - si
+    seg_start = torch.cat([cs.new_zeros(1), cs])[flat.offsets[:-1]]  # [N]
+    safe = torch.clamp(flat.ray_id, 0, N - 1)
+    rank = excl - torch.where(flat.ray_id < N, seg_start[safe], 0)
+    keep = surv & (rank < cap)
+    counts2 = seg_sum(keep.to(torch.int64), flat.offsets)           # [N]
+    offsets2 = torch.clamp(torch.cat([counts2.new_zeros(1),
+                                      torch.cumsum(counts2, 0)]), max=M2)
+    idx = torch.argsort((~keep).to(torch.uint8), stable=True)[:M2]
+    valid2 = torch.arange(idx.shape[0], device=dev) < offsets2[-1]
+    ray2 = torch.where(valid2, flat.ray_id[idx], N)
+    return SurvivorPool(idx=idx, ray_id=ray2, valid=valid2,
+                        offsets=offsets2)
 
 
 class FlatComposite(NamedTuple):

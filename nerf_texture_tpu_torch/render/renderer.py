@@ -22,10 +22,16 @@ Python loop, and its last chunk is simply shorter (no padding).  The
 ``id()``-keyed prepass and corner-table caches become the explicit
 ``PrepassState`` that the caller builds once per grid.
 
+Without a corner table (``infer_mode='pool'``, or no density grid) a
+frame takes the pool path instead: the same block prepass without the
+tau carve, then per chunk ``render_rays`` -- the occupancy march within
+each ray's prepass span, the compacted sample pool, and with the sigma
+and colour functions the two-phase render over ``survivor_pool``.  The
+curved model's anchor frames ride along on both paths (``anchor_fn``).
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the two-round proxy (``proxy_samples > 0``), anchors, deferred
-shading, the two-phase ``sigma_fn`` pool render, and ``render_image``'s
-pool path for grids without a proxy corner table.
+item): the two-round proxy (``proxy_samples > 0``), deferred shading,
+and grids of more than one cascade.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from ..ops.marching import march_rays, near_far_from_aabb, sample_points
 from ..ops.proxy_select import (proxy_select, proxy_select_cdf,
                                 proxy_select_cdf_reference,
                                 proxy_select_reference)
-from .compact import composite_flat, flat_points, flatten_samples
+from .compact import (composite_flat, flat_points, flat_weights,
+                      flatten_samples, seg_sum, survivor_pool)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,65 +99,172 @@ def _round_up(x: int, m: int) -> int:
 
 def render_rays(field_fn, occ, rays_o, rays_d, cfg: RenderConfig, *,
                 max_samples: int, perturb: bool = False, u=None,
-                bg_color=1.0, pool_mean: int | None = None,
-                anchor_fn=None, sigma_fn=None):
+                bg_color=1.0, aabb=None, pool_mean: int | None = None,
+                anchor_fn=None, nears=None, fars=None,
+                march_steps: int | None = None, sigma_fn=None,
+                color_fn=None, pool_rays: int | None = None):
     """Render a batch of rays (training, and the pool path of inference).
 
-    field_fn: (xyzs [M, 3], dirs [M, 3]) -> (sigmas [M], rgbs [M, 3]);
-    occ: [cascades * grid_size**3] uint8; rays_o / rays_d [N, 3];
-    bg_color: scalar, [3] or [N, 3]; ``perturb`` jitters each ray's start
-    by u [N] in [0, 1) (see ``march_rays``).  With ``pool_mean`` > 0
-    (default ``cfg.pool_mean_samples``) the field runs on the compacted
-    pool of about N * pool_mean samples, else on the dense [N, K] grid.
+    field_fn: (xyzs [M, 3], dirs [M, 3][, frames]) -> (sigmas [M],
+    rgbs [M, 3]) or (sigmas, rgbs, extras), where the 3-channel extras
+    named '*normal*' are alpha-composited too; occ: [cascades *
+    grid_size**3] uint8; rays_o / rays_d [N, 3]; bg_color: scalar, [3] or
+    [N, 3]; ``perturb`` jitters each ray's start by u [N] in [0, 1) (see
+    ``march_rays``).  ``nears`` / ``fars`` [N] (the prepass spans) replace
+    the slab test against ``aabb`` (default: the bound's cube);
+    ``march_steps`` shortens the march sequence (its step stays tied to
+    ``max_steps``).
 
-    Returns dict(image [N, 3], depth [N], weights_sum [N], counts [N])."""
-    if anchor_fn is not None:
-        raise NotImplementedError(
-            "render_rays: anchors belong to the curved model; ROADMAP "
-            "Queue 1, item 8")
-    if sigma_fn is not None:
-        raise NotImplementedError(
-            "render_rays: the two-phase sigma_fn pool render (survivor_pool)"
-            " is not ported; ROADMAP Queue 1, item 4")
-    aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3,
-                        dtype=rays_o.dtype, device=rays_o.device)
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    anchor_fn(rays_o, rays_d, xs, valid) -> frames (dict of per-point
+    tensors): with ``cfg.anchor_per_sample`` it runs on every sample, else
+    once per ray at the ray's first sample and is gathered to the
+    samples; the field is then called as field_fn(xyzs, dirs, frames).
+
+    With ``pool_mean`` > 0 (default ``cfg.pool_mean_samples``) the field
+    runs on the compacted pool of about N * pool_mean samples, else on the
+    dense [N, K] grid.  The pool keeps a per-ray cap of budget // N
+    samples; ``pool_rays`` sizes the budget for that many rays, so that a
+    shorter last chunk keeps the cap of a full one.  With ``sigma_fn``
+    (pool only) the render is two-phase: sigma_fn(xyzs, dirs[, frames]) ->
+    sigma or (sigma, aux) over the whole pool, ``survivor_pool`` of the
+    weights, then color_fn(x2, d2, aux2[, frames2]) -- or field_fn when
+    there is no aux -- on the survivors only.
+
+    Returns dict(image [N, 3], depth [N], weights_sum [N], counts [N],
+    ...composited extras)."""
+    if aabb is None:
+        aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3,
+                            dtype=rays_o.dtype, device=rays_o.device)
+    if nears is None or fars is None:
+        nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
     m = march_rays(rays_o, rays_d, occ, nears, fars, bound=cfg.bound,
                    cascades=cfg.cascades, grid_size=cfg.grid_size,
-                   max_steps=cfg.max_steps, max_samples=max_samples,
-                   dt_gamma=cfg.dt_gamma, perturb=perturb, u=u)
+                   max_steps=march_steps or cfg.max_steps,
+                   max_samples=max_samples, dt_gamma=cfg.dt_gamma,
+                   perturb=perturb, u=u, dt_steps=cfg.max_steps)
     N, K = m.ts.shape
     denom = torch.where(fars > nears, fars - nears, 1.0)
     bg = torch.as_tensor(bg_color, dtype=rays_o.dtype, device=rays_o.device)
+    per_sample_anchor = anchor_fn is not None and cfg.anchor_per_sample
+    frames = None
+    if anchor_fn is not None and not per_sample_anchor:
+        x_seed = torch.clamp(rays_o + m.ts[:, :1] * rays_d, -cfg.bound,
+                             cfg.bound)
+        frames = anchor_fn(rays_o, rays_d, x_seed, m.counts > 0)
+
     if pool_mean is None:
         pool_mean = cfg.pool_mean_samples
     if pool_mean:
-        flat = flatten_samples(m, _round_up(N * pool_mean, 1024))
+        n_pool = pool_rays or N
+        budget = _round_up(n_pool * pool_mean, 1024)
+        if pool_rays:
+            budget = budget // n_pool * N
+        flat = flatten_samples(m, budget)
         xyzs, dirs = flat_points(rays_o, rays_d, flat, cfg.bound)
-        sigmas, rgbs = _field_pair(field_fn(xyzs, dirs))
-        res = composite_flat(sigmas.reshape(-1) * cfg.density_scale,
-                             rgbs.reshape(-1, 3), flat)
-        image = res.image + (1.0 - res.weights_sum)[..., None] * bg
+        if per_sample_anchor:
+            frames_flat = anchor_fn(rays_o, rays_d, xyzs, flat.valid)
+        elif frames is not None:
+            frames_flat = _take(frames, torch.clamp(flat.ray_id, 0, N - 1))
+        else:
+            frames_flat = None
+        if sigma_fn is not None:
+            return _two_phase(field_fn, sigma_fn, color_fn, xyzs, dirs,
+                              frames, frames_flat, per_sample_anchor, flat,
+                              N, cfg, bg, nears, denom, m.counts)
+        sigmas, rgbs, extras = _field_outputs(
+            _call(field_fn, frames_flat, xyzs, dirs))
+        sigmas = sigmas.reshape(-1) * cfg.density_scale
+        res = composite_flat(sigmas, rgbs.reshape(-1, 3), flat)
+        results = {"image": res.image + (1.0 - res.weights_sum)[..., None]
+                   * bg,
+                   "depth": torch.clamp(res.depth - nears, min=0.0) / denom,
+                   "weights_sum": res.weights_sum, "counts": m.counts}
+        for name, val in extras.items():
+            if val is not None and val.shape[-1] == 3 and "normal" in name:
+                results[name] = composite_flat(sigmas.detach(),
+                                               val.reshape(-1, 3),
+                                               flat).image
+            else:
+                results[name] = val
+        return results
+
+    xyzs, dirs = sample_points(rays_o, rays_d, m, cfg.bound)
+    xyzs, dirs = xyzs.reshape(N * K, 3), dirs.reshape(N * K, 3)
+    if per_sample_anchor:
+        frames_d = anchor_fn(rays_o, rays_d, xyzs, m.mask.reshape(-1))
+    elif frames is not None:
+        frames_d = {k: torch.repeat_interleave(a, K, dim=0)
+                    for k, a in frames.items()}
     else:
-        xyzs, dirs = sample_points(rays_o, rays_d, m, cfg.bound)
-        sigmas, rgbs = _field_pair(field_fn(xyzs.reshape(N * K, 3),
-                                            dirs.reshape(N * K, 3)))
-        res = composite_rays(sigmas.reshape(N, K) * cfg.density_scale,
-                             rgbs.reshape(N, K, 3), m.dts, m.ts, m.mask)
-        image = composite_with_background(res, bg)
-    depth = torch.clamp(res.depth - nears, min=0.0) / denom
-    return {"image": image, "depth": depth, "weights_sum": res.weights_sum,
-            "counts": m.counts}
+        frames_d = None
+    sigmas, rgbs, extras = _field_outputs(_call(field_fn, frames_d, xyzs,
+                                                dirs))
+    sigmas = sigmas.reshape(N, K) * cfg.density_scale
+    res = composite_rays(sigmas, rgbs.reshape(N, K, 3), m.dts, m.ts, m.mask)
+    results = {"image": composite_with_background(res, bg),
+               "depth": torch.clamp(res.depth - nears, min=0.0) / denom,
+               "weights_sum": res.weights_sum, "counts": m.counts}
+    for name, val in extras.items():
+        if val is not None and val.shape[-1] == 3 and "normal" in name:
+            results[name] = composite_rays(sigmas.detach(),
+                                           val.reshape(N, K, 3), m.dts,
+                                           m.ts, m.mask).image
+        else:
+            results[name] = val
+    return results
 
 
-def _field_pair(out):
-    """(sigma, rgb) of a field's output; extra per-sample attributes
-    (normals) belong to the curved model."""
-    if not isinstance(out, tuple) or len(out) != 2:
-        raise NotImplementedError(
-            "render_rays: fields with extra per-sample outputs belong to "
-            "the curved model; ROADMAP Queue 1, item 8")
-    return out
+def _call(fn, frames, *args):
+    """fn(*args), with the anchor frames as the last argument if any."""
+    return fn(*args) if frames is None else fn(*args, frames)
+
+
+def _take(tree, idx):
+    """Rows idx of a tensor or of every tensor of a dict."""
+    if isinstance(tree, dict):
+        return {k: a[idx] for k, a in tree.items()}
+    return tree[idx]
+
+
+def _field_outputs(out):
+    """(sigmas, rgbs, extras dict) of a field's 2- or 3-tuple output."""
+    if isinstance(out, tuple) and len(out) == 3:
+        return out
+    sigmas, rgbs = out
+    return sigmas, rgbs, {}
+
+
+def _two_phase(field_fn, sigma_fn, color_fn, xyzs, dirs, frames,
+               frames_flat, per_sample_anchor, flat, N, cfg, bg, nears,
+               denom, counts):
+    """The two-phase pool render of ``render_rays``: sigma over the whole
+    pool -> weights -> ``survivor_pool`` -> colour on the survivors."""
+    out1 = _call(sigma_fn, frames_flat, xyzs, dirs)
+    sig, aux = out1 if isinstance(out1, tuple) else (out1, None)
+    sig = sig.reshape(-1) * cfg.density_scale
+    w, trans = flat_weights(sig, flat)
+    surv = survivor_pool(flat, w, N, cap=cfg.infer_color_cap,
+                         w_eps=cfg.infer_w_eps, trans=trans)
+    x2, d2 = xyzs[surv.idx], dirs[surv.idx]
+    if per_sample_anchor:
+        frames2 = _take(frames_flat, surv.idx)
+    elif frames is not None:
+        frames2 = _take(frames, torch.clamp(surv.ray_id, 0, N - 1))
+    else:
+        frames2 = None
+    if color_fn is not None and aux is not None:
+        aux2 = _take(aux, surv.idx)
+        rgb2 = _call(color_fn, frames2, x2, d2, aux2)
+    else:
+        out = _call(field_fn, frames2, x2, d2)
+        rgb2 = out[1] if isinstance(out, tuple) else out
+    w2 = torch.where(surv.valid, w[surv.idx], 0.0)
+    image = seg_sum(w2[:, None] * rgb2.reshape(-1, 3), surv.offsets)
+    wsum = seg_sum(w, flat.offsets)
+    dep = seg_sum(w * flat.ts, flat.offsets)
+    return {"image": image + (1.0 - wsum)[..., None] * bg,
+            "depth": torch.clamp(dep - nears, min=0.0) / denom,
+            "weights_sum": wsum, "counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +317,7 @@ def _proxy_sigma(dens8: torch.Tensor, rays_o: torch.Tensor,
 
 
 def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
-                      cfg: RenderConfig, *, bg_color=1.0,
+                      cfg: RenderConfig, *, bg_color=1.0, anchor_fn=None,
                       plain_select: bool = False):
     """Proposal-style inference over each ray's prepass span [nears,
     fars]: K proxy densities -> ``cap`` survivors -> the field on the
@@ -217,7 +331,8 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
     JAX package's XLA chain has the Pallas kernel's semantics, and there
     is no inverse-CDF twin of it (a warning says so, as in JAX).
     ``plain_select`` runs the plain PyTorch selections in place of the
-    kernels (to hold them against each other)."""
+    kernels (to hold them against each other).  ``anchor_fn``: as in
+    ``render_rays``, on the survivors (see ``_proxy_tail``)."""
     if cfg.proxy_samples != 0:
         raise NotImplementedError(
             "render_rays_proxy: the two-round proxy (proxy_samples > 0) is "
@@ -245,28 +360,48 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
     cap_eff = min(cap, K)
     ts2, seg2, valid2 = select(ts, sig_p, t_lo, t_hi, cap=cap_eff,
                                w_eps=float(cfg.infer_w_eps))
+    tail = dict(bg_color=bg_color, anchor_fn=anchor_fn,
+                any_act=fars > nears)
     if cdf:
         return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2,
-                           None, valid2, cap_eff, cfg, bg_color=bg_color,
-                           dt2=seg2)
+                           None, valid2, cap_eff, cfg, dt2=seg2, **tail)
     return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2,
-                       seg2, valid2, cap_eff, cfg, bg_color=bg_color)
+                       seg2, valid2, cap_eff, cfg, **tail)
 
 
 def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2, skip2,
                 valid2, cap_eff: int, cfg: RenderConfig, *, bg_color,
-                dt2=None):
+                anchor_fn=None, any_act=None, dt2=None):
     """Exact field eval + front-to-back composite over the [N, cap]
     survivor slots.  Each slot integrates over its segment dt2 (inverse-
     CDF placement) or the bin width dts (top-k); ``skip2`` (top-k only;
     None otherwise) adds the proxy optical depth of the dropped samples
     before each survivor, so the transmittance it sees matches the full
-    integral."""
+    integral.
+
+    With ``anchor_fn`` the field gets anchor frames: per survivor
+    (``anchor_per_sample``; valid where the slot is and the ray has a
+    span, ``any_act``), or once per ray seeded at its first survivor (at
+    the middle of its first bin when the slot is empty), as training
+    seeds at the first marched sample."""
     N = rays_o.shape[0]
     x2 = torch.clamp(rays_o[:, None, :] + ts2[..., None] * rays_d[:, None, :],
                      -cfg.bound, cfg.bound)              # [N, cap, 3]
     d2 = rays_d[:, None, :].expand(x2.shape)
-    out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3))
+    if anchor_fn is not None and cfg.anchor_per_sample:
+        frames2 = anchor_fn(rays_o, rays_d, x2.reshape(-1, 3),
+                            (valid2 & any_act[:, None]).reshape(-1))
+        out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3), frames2)
+    elif anchor_fn is not None:
+        t_seed = torch.where(valid2[:, 0], ts2[:, 0], nears + 0.5 * dts)
+        x_seed = torch.clamp(rays_o + t_seed[:, None] * rays_d, -cfg.bound,
+                             cfg.bound)
+        frames = anchor_fn(rays_o, rays_d, x_seed, any_act)
+        frames2 = {k: torch.repeat_interleave(a, cap_eff, dim=0)
+                   for k, a in frames.items()}
+        out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3), frames2)
+    else:
+        out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3))
     if not isinstance(out, tuple):
         raise ValueError("proxy mode needs field_fn -> (sigma, rgb)")
     sigma2 = out[0].reshape(N, cap_eff) * cfg.density_scale
@@ -447,9 +582,11 @@ class PrepassState:
     aabb_np / aabb: tight occupied AABB (np [6] and on the device), None
       when nothing is occupied (pure background);
     occ_dil: [H^3] uint8 dilated prepass occupancy on the device;
-    dens8: [H^3, 8] proxy corner table on the device;
+    dens8: [H^3, 8] proxy corner table on the device (proxy mode with
+      the density grid; None otherwise, and frames take the pool path);
     tau_samples: the tau-carve sample count for this AABB;
-    device: where the frame renders."""
+    device: where the frame renders;
+    occ: the grid's own occupancy, which the pool path marches."""
 
     aabb_np: np.ndarray | None
     aabb: torch.Tensor | None
@@ -457,6 +594,7 @@ class PrepassState:
     dens8: torch.Tensor | None
     tau_samples: int
     device: torch.device
+    occ: torch.Tensor | None = None
 
     @classmethod
     def build(cls, occ, cfg: RenderConfig, *,
@@ -478,7 +616,7 @@ class PrepassState:
             dens8=dens8,
             tau_samples=(cfg.prepass_tau_samples if aabb_np is None
                          else _tau_samples(cfg, aabb_np)),
-            device=device)
+            device=device, occ=occ)
 
 
 def _max3x3(x: torch.Tensor) -> torch.Tensor:
@@ -617,35 +755,78 @@ def _chunk_rays(pose3, intr, idx_c, W: int):
     return ro, rd
 
 
-def _chunk_body(field_fn, pose3, intr, frame, perm, count: int, start: int,
-                t0_d, t1_d, dens8, cfg: RenderConfig, *, B: int, W: int,
-                Wb: int, chunk: int, plain_select: bool = False
-                ) -> torch.Tensor:
+def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
+                t0_d, t1_d, prepass: PrepassState, cfg: RenderConfig, *,
+                B: int, W: int, Wb: int, chunk: int,
+                plain_select: bool = False) -> torch.Tensor:
     """Gather-render-scatter for the live rays perm[start:start+chunk]
-    (the last chunk is shorter).  ``frame``'s rgb lanes still hold the
-    background of every unwritten ray, so the chunk's bg gather reads
-    it; the frame is updated in place and returned."""
+    (the last chunk is shorter): the proxy render over the corner table,
+    or without one the pool render (march of the grid's occupancy within
+    the prepass span, compacted pool, two-phase with ``fns``' sigma and
+    colour functions).  ``frame``'s rgb lanes still hold the background
+    of every unwritten ray, so the chunk's bg gather reads it; the frame
+    is updated in place and returned."""
+    field_fn, anchor_fn, sigma_fn, color_fn = fns
     idx_c = perm[start:min(start + chunk, count)]
     ro, rd = _chunk_rays(pose3, intr, idx_c, W)
     bg_c = frame[idx_c, :3]
     idx_b = (idx_c // (W * B)) * Wb + (idx_c % W) // B if B > 1 else idx_c
-    out = render_rays_proxy(field_fn, dens8, ro, rd, t0_d[idx_b],
-                            t1_d[idx_b], cfg, bg_color=bg_c,
-                            plain_select=plain_select)
+    if prepass.dens8 is not None:
+        out = render_rays_proxy(field_fn, prepass.dens8, ro, rd, t0_d[idx_b],
+                                t1_d[idx_b], cfg, bg_color=bg_c,
+                                anchor_fn=anchor_fn,
+                                plain_select=plain_select)
+    else:
+        out = render_rays(
+            field_fn, prepass.occ, ro, rd, cfg,
+            max_samples=cfg.max_samples_infer, bg_color=bg_c,
+            aabb=prepass.aabb, anchor_fn=anchor_fn, nears=t0_d[idx_b],
+            fars=t1_d[idx_b], march_steps=cfg.march_steps_infer or None,
+            sigma_fn=sigma_fn, color_fn=color_fn,
+            pool_mean=(cfg.pool_mean_samples_infer
+                       if cfg.pool_mean_samples else 0),
+            pool_rays=chunk)
     frame[idx_c] = torch.cat([out["image"], out["depth"][:, None],
                               out["weights_sum"][:, None]], dim=-1)
     return frame
 
 
+def _bind(params, field_static, field_apply, anchor_apply, sigma_apply,
+          color_apply):
+    """The per-point functions of a frame: (field_fn, anchor_fn, sigma_fn,
+    color_fn) with params and field_static bound; with ``anchor_apply``
+    the field functions take the anchor frames as their last argument."""
+    st = field_static
+    if anchor_apply is not None:
+        return (lambda x, d, f: field_apply(params, x, d, st, f),
+                lambda o, d, xs, sv: anchor_apply(params, o, d, xs, sv, st),
+                None if sigma_apply is None else
+                (lambda x, d, f: sigma_apply(params, x, d, st, f)),
+                None if color_apply is None else
+                (lambda x, d, a, f: color_apply(params, x, d, a, st, f)))
+    return (lambda x, d: field_apply(params, x, d, st), None,
+            None if sigma_apply is None else
+            (lambda x, d: sigma_apply(params, x, d, st)),
+            None if color_apply is None else
+            (lambda x, d, a: color_apply(params, x, d, a, st)))
+
+
 def render_image(field_apply, field_static, params, prepass: PrepassState,
                  pose, intrinsics, H: int, W: int, cfg: RenderConfig, *,
-                 bg_color=1.0, plain_select: bool = False):
+                 bg_color=1.0, anchor_apply=None, sigma_apply=None,
+                 color_apply=None, plain_select: bool = False):
     """Render a full frame: block prepass, live compaction, one host sync
     for the live count, then a plain loop over chunks of live rays.
 
-    field_apply(params, xyzs [M, 3], dirs [M, 3], field_static) ->
-    (sigmas [M], rgbs [M, 3]).  ``prepass`` is the grid's
-    ``PrepassState``.  ``plain_select``: see ``render_rays_proxy``.
+    field_apply(params, xyzs [M, 3], dirs [M, 3], field_static[,
+    frames]) -> (sigmas [M], rgbs [M, 3]); anchor_apply(params, rays_o,
+    rays_d, xs, valid, field_static) -> frames; sigma_apply(params, x, d,
+    field_static[, frames]) -> (sigma, aux) and color_apply(params, x, d,
+    aux, field_static[, frames]) -> rgb, the two phases of the pool path.
+    ``prepass`` is the grid's ``PrepassState``: with a corner table
+    (``infer_mode='proxy'``) the frame takes the proxy path, without one
+    the pool path (no tau carve in the block prepass).
+    ``plain_select``: see ``render_rays_proxy``.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: live rays rendered, chunks: chunks rendered)."""
@@ -662,11 +843,10 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
 
     if prepass.aabb is None:
         return out(frame, 0, 0)         # nothing occupied: pure background
-    if prepass.occ_dil is None or prepass.dens8 is None:
+    if prepass.occ_dil is None:
         raise NotImplementedError(
-            "render_image: only the proxy path over a single-cascade grid "
-            "with its density is ported; the AABB-hit pool inference path "
-            "waits for ROADMAP Queue 1, item 4 (survivor_pool)")
+            "render_image: grids of more than one cascade (the AABB-hit "
+            "inference path) are not ported; ROADMAP Queue 1, item 4")
     pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
     intr_np = np.asarray(intrinsics, np.float32)
     intr = torch.as_tensor(intr_np, device=device)
@@ -684,20 +864,18 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     # the frame's one host sync: the live count (and the hit-block count
     # for the tau-sweep cap warning) in one transfer
     count, n_hit = torch.stack([count_d, n_hit_d]).tolist()
-    if cfg.prepass_tau_cull > 0.0 and B > 1 and n_hit > 4096:
+    if (prepass.dens8 is not None and cfg.prepass_tau_cull > 0.0 and B > 1
+            and n_hit > 4096):
         # one message text, so the default filter shows it once
         warnings.warn(
             "render_image: the hit blocks exceed the tau sweep's cap of "
             "4096; the blocks past it keep their full span (ROADMAP "
             "Queue 3)", stacklevel=2)
     n_chunks = -(-count // chunk)
-
-    def field_fn(x, d):
-        return field_apply(params, x, d, field_static)
-
+    fns = _bind(params, field_static, field_apply, anchor_apply,
+                sigma_apply, color_apply)
     for c in range(n_chunks):
-        frame = _chunk_body(field_fn, pose[:3], intr, frame, perm, count,
-                            c * chunk, t0_d, t1_d, prepass.dens8, cfg, B=B,
-                            W=W, Wb=Wb, chunk=chunk,
-                            plain_select=plain_select)
+        frame = _chunk_body(fns, pose[:3], intr, frame, perm, count,
+                            c * chunk, t0_d, t1_d, prepass, cfg, B=B, W=W,
+                            Wb=Wb, chunk=chunk, plain_select=plain_select)
     return out(frame, count, n_chunks)

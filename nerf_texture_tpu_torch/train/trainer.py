@@ -267,7 +267,9 @@ def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
         prepass = PrepassState.build(occ.occ, rcfg, density=occ.density)
     return render_image(ngp_field_apply, mcfg, ngp_infer_params(params, mcfg),
                         prepass, pose, intrinsics, H, W, rcfg,
-                        bg_color=bg_color, plain_select=plain_select)
+                        bg_color=bg_color, sigma_apply=ngp_sigma_apply,
+                        color_apply=ngp_color_apply,
+                        plain_select=plain_select)
 
 
 class Trainer:

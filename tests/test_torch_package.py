@@ -21,6 +21,11 @@ from nerf_texture_tpu.ops.hashgrid_packed import (
     PackedGridSpec as JaxPackedGridSpec)
 from nerf_texture_tpu.render.renderer import RenderConfig as JaxRenderConfig
 from nerf_texture_tpu.train.trainer import TrainConfig as JaxTrainConfig
+from nerf_texture_tpu.models import curved_field as jax_curved_field
+from nerf_texture_tpu.models import mesh_field as jax_mesh_field
+from nerf_texture_tpu.models import normal_net as jax_normal_net
+from nerf_texture_tpu.models.lights import sh as jax_sh
+from nerf_texture_tpu.train import curved_trainer as jax_curved_trainer
 from nerf_texture_tpu_torch import kernels
 from nerf_texture_tpu_torch.data import synthetic
 from nerf_texture_tpu_torch.data.poses import orbit_pose
@@ -33,6 +38,9 @@ from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
 from nerf_texture_tpu_torch.render.renderer import RenderConfig
 from nerf_texture_tpu_torch.train.trainer import TrainConfig
 from nerf_texture_tpu_torch.utils.metrics import psnr
+from nerf_texture_tpu_torch.models import curved_field, mesh_field, normal_net
+from nerf_texture_tpu_torch.models.lights import sh
+from nerf_texture_tpu_torch.train import curved_trainer
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -57,7 +65,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 15, res.stdout
+    assert int(res.stdout.split()[0]) >= 26, res.stdout
 
 
 @pytest.mark.parametrize("ours,theirs", [
@@ -67,6 +75,52 @@ def test_config_fields_match_jax(ours, theirs):
     mine = [(f.name, f.default) for f in dataclasses.fields(ours)]
     ref = [(f.name, f.default) for f in dataclasses.fields(theirs)]
     assert mine == ref
+
+
+def _fields(cls):
+    """(name, default) of a config dataclass; nested config defaults as
+    their own field lists."""
+    out = []
+    for f in dataclasses.fields(cls):
+        d = f.default
+        out.append((f.name, _fields(type(d)) if dataclasses.is_dataclass(d)
+                    else d))
+    return out
+
+
+@pytest.mark.parametrize("ours,theirs", [
+    (curved_field.CurvedFieldConfig, jax_curved_field.CurvedFieldConfig),
+    (mesh_field.MeshFieldConfig, jax_mesh_field.MeshFieldConfig),
+    (curved_trainer.CurvedTrainConfig,
+     jax_curved_trainer.CurvedTrainConfig),
+    (sh.SHLightConfig, jax_sh.SHLightConfig),
+    (normal_net.NormalNetConfig, jax_normal_net.NormalNetConfig)])
+def test_curved_config_fields_match_jax(ours, theirs):
+    assert _fields(ours) == _fields(theirs)
+
+
+def test_curved_bench_configs_convert():
+    """bench.py's curved arm: the field config converts field by field
+    and gives the same table layouts and embedding widths."""
+    j = jax_curved_field.CurvedFieldConfig(
+        field=jax_mesh_field.MeshFieldConfig(), light_model="SH")
+    t = curved_field.CurvedFieldConfig(
+        field=mesh_field.MeshFieldConfig(**dataclasses.asdict(j.field)),
+        **{k: v for k, v in dataclasses.asdict(j).items() if k != "field"})
+    for a, b in ((t.field.feature_spec, j.field.feature_spec),
+                 (t.field.normal_cfg.phi_grid_spec,
+                  j.field.normal_cfg.phi_grid_spec)):
+        assert (a.offsets, a.table_rows, a.storage_width, a.row_width,
+                a.dual_storage_width) == (b.offsets, b.table_rows,
+                                          b.storage_width, b.row_width,
+                                          b.dual_storage_width)
+    assert t.field.feature_spec.table_rows == 524288
+    assert t.field.feature_spec.dual_storage_width == 128
+    assert (t.field.embed_dim, t.sh_cfg, t.field_name) == (
+        j.field.embed_dim, sh.SHLightConfig(**dataclasses.asdict(j.sh_cfg)),
+        j.field_name)
+    assert dataclasses.asdict(t.field.normal_cfg) == \
+        dataclasses.asdict(j.field.normal_cfg)
 
 
 def test_bench_configs_convert():

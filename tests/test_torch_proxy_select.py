@@ -146,9 +146,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+# full-width chunks: [16384, 24] cap 4 is the NGP render's, cap 5 the
+# curved live render's
 @pytest.mark.parametrize("seed,N,K,cap",
                          [(i,) + c for i, c in enumerate(
-                             CASES + [(16384, 24, 4), (8192, 16, 5)])])
+                             CASES + [(16384, 24, 4), (8192, 16, 5),
+                                      (16384, 24, 5)])])
 def test_kernel_matches_plain(cuda_device, seed, N, K, cap):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in _inputs(seed, N, K)]

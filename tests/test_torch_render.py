@@ -320,10 +320,18 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(params, occ, pose, intr, 16, 16, mcfg,
                      dataclasses.replace(base, deferred=True))
-    no_density = tr.PrepassState.build(occ.occ, base)
+    two_cascades = dataclasses.replace(base, cascades=2)
+    prepass = tr.PrepassState.build(torch.cat([occ.occ, occ.occ]),
+                                    two_cascades)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(params, None, pose, intr, 16, 16, mcfg, base,
-                     prepass=no_density)
+        render_frame(params, None, pose, intr, 16, 16, mcfg, two_cascades,
+                     prepass=prepass)
+    # without the density grid there is no corner table: the pool path
+    no_density = tr.PrepassState.build(occ.occ, base)
+    assert no_density.dens8 is None
+    out = render_frame(params, None, pose, intr, 16, 16, mcfg, base,
+                       prepass=no_density)
+    assert out["chunks"] >= 1 and bool(torch.isfinite(out["image"]).all())
 
 
 def test_tau_sweep_cap_warns():
