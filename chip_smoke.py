@@ -16,11 +16,12 @@ result line:
 
   1. device:  a CUDA card is required (there is no CPU path); prints the
               card's name and power limit as nvidia-smi gives them;
-  2. build:   builds the selection kernels from csrc/ (nvcc, sm_90a);
+  2. build:   builds the selection kernels from csrc/ (nvcc, sm_90a) and
+              prints ptxas's register and spill lines;
   3. kernel:  proxy_select_cdf vs its plain PyTorch version on the card,
               at the serving path's shape [16384, 24] cap 4 and at
               [8192, 16] cap 5, with degenerate spans, empty rays and
-              ties; times both;
+              ties; times the plain version;
   4. parity:  a small frame rendered by the port on the card vs the same
               frame by the port on the CPU (whose numerics the tier-1 tests
               hold against the JAX package);
@@ -30,7 +31,7 @@ result line:
               with the plain selection agrees;
   6. kernel:  proxy_select (top-k) vs its plain version at the trained
               render's shape [16384, 24] cap 8 and at [8192, 32] cap 8 and
-              [8192, 16] cap 4, same recipe; times both;
+              [8192, 16] cap 4, same recipe;
   7. train:   Trainer on SyntheticSphereDataset(8 frames, 800x800) for
               50 + 650 steps: the loss is finite and falls, the grid is
               not empty;
@@ -48,7 +49,13 @@ result line:
               re-rendered with the plain selection agrees), parity=True
               pool frames, kernels a frame from one torch.profiler frame
               of each, and a small frame of both paths on the card vs the
-              CPU port.
+              CPU port;
+ 10. timing:  each selection kernel's device time from torch.profiler's
+              kernel events (median of 60 launches; cold with 64 MiB
+              written between launches, and warm with sig just written),
+              against its bound and beside a copy_ of the same bytes,
+              and its wrapper's host time a call, at [16384, 24] CDF cap
+              5 and cap 4 and top-k cap 8.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -59,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +109,19 @@ TWIN_FRAME_OFF_SHARE = 1e-3
 TRAIN_PSNR_MIN = 26.0
 NOVEL_PSNR_MIN = 23.0
 JAX_TRAIN_PSNR, JAX_NOVEL_PSNR = 27.07, 23.94
+
+# Kernel timing (phase 10): the selection kernels at the main path's
+# shapes -- the curved live chunk (CDF cap 5), the NGP renders (CDF cap 4)
+# and the NGP top-k render (cap 8) -- each over TIMED_LAUNCHES launches.
+# Bounds use the H100 SXM's published rates (NVIDIA's data sheet, 700 W):
+# HBM3 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores.
+TIMED_SHAPES = [("cdf", 16384, 24, 5), ("cdf", 16384, 24, 4),
+                ("topk", 16384, 24, 8)]
+TIMED_LAUNCHES = 60
+WRAPPER_CALLS, WRAPPER_BATCHES = 100, 5
+FLUSH_BYTES = 64 << 20
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 BENCH_NGP = dict(bound=1.0, num_levels=8, level_dim=4, log2_bricks=16,
                  desired_resolution=2048)
@@ -257,9 +278,11 @@ def twin_stats(a: np.ndarray, b: np.ndarray):
             float(np.mean(np.abs(a - b).max(-1) > 1e-3)))
 
 
-def profile_frame(fn):
-    """(CUDA kernels, their device ms) of one call of fn under
-    torch.profiler, from the trace's kernel events."""
+def kernel_events(fn, cats=("kernel",)):
+    """(name, device us) of every CUDA kernel that one call of fn runs,
+    under torch.profiler, from the trace's ``cat == "kernel"`` events
+    (annotation rows would count a kernel twice); ``cats`` may add
+    "gpu_memcpy" for copies."""
     import os
     import tempfile
 
@@ -275,8 +298,127 @@ def profile_frame(fn):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    return len(kernels), sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    return [(e.get("name", ""), float(e.get("dur", 0.0))) for e in events
+            if e.get("cat") in cats]
+
+
+def profile_frame(fn):
+    """(CUDA kernels, their device ms) of one call of fn."""
+    kernels = kernel_events(fn)
+    return len(kernels), sum(d for _, d in kernels) / 1e3
+
+
+def select_bound(kind: str, N: int, K: int, cap: int):
+    """(bound ms, "bytes" or "operations", bytes) of one selection call:
+    the
+    larger of its bytes -- each input read once (sig, and ts for top-k;
+    t_lo, t_hi), each output written once (two f32 rows and a bool row of
+    cap) -- over HBM_BYTES_PER_S and its f32 operations over
+    F32_OPS_PER_S.  Operations count the plain algorithm's: per sample a
+    multiply, two Hillis-Steele scans (log2 K adds each), two exp, a few
+    subtracts and selects, and (CDF) a divide or (top-k) two compares a
+    round; per CDF quantile K compares and ~10 ops."""
+    n_in = 2 if kind == "topk" else 1
+    nbytes = N * K * 4 * n_in + 2 * N * 4 + N * cap * 9
+    lg = int(np.ceil(np.log2(max(K, 2))))
+    if kind == "topk":
+        ops = N * K * (2 * lg + 8 + 2 * cap)
+    else:
+        ops = N * (K * (2 * lg + 8) + cap * (K + 10))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes", nbytes) if t_bytes >= t_ops
+            else (t_ops, "operations", nbytes))
+
+
+def time_select(select, args, cap: int, flush) -> dict:
+    """Device and host times of one selection wrapper at one shape.
+
+    device_us_warm: median device duration of the selection kernel over
+    TIMED_LAUNCHES launches, each right after sig is rewritten (so sig
+    sits in L2, as _proxy_sigma leaves it on the render path);
+    device_us: the same with ``flush`` (64 MiB, more than the 50 MB L2)
+    written before each launch, so the inputs come from HBM -- the
+    reading compared with the bound; wrapper_us: host time of a call of
+    the wrapper (checks, outputs, launch): the median over WRAPPER_BATCHES
+    batches of the mean of WRAPPER_CALLS back-to-back calls, which the
+    card runs faster than the host issues them."""
+    sig = args[1]
+    src = sig.clone()
+    name = re.compile(r"select(_cdf|_topk)?_kernel")
+
+    def run(before):
+        def go():
+            for i in range(TIMED_LAUNCHES):
+                before(i)
+                select(*args, cap=cap, w_eps=1e-4)
+        durs = [d for n, d in kernel_events(go) if name.search(n)]
+        check(len(durs) == TIMED_LAUNCHES,
+              f"{len(durs)} selection kernels traced for {TIMED_LAUNCHES} "
+              f"launches")
+        return float(np.median(durs))
+
+    select(*args, cap=cap, w_eps=1e-4)                 # warm-up
+    warm = run(lambda i: sig.copy_(src))
+    cold = run(lambda i: flush.fill_(float(i)))
+    host = []
+    for _ in range(WRAPPER_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WRAPPER_CALLS):
+            select(*args, cap=cap, w_eps=1e-4)
+        host.append((time.perf_counter() - t0) / WRAPPER_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return {"device_us": cold, "device_us_warm": warm,
+            "wrapper_us": float(np.median(host))}
+
+
+def copy_floor_us(nbytes: int, flush, dev) -> float:
+    """Median device time (us) of one Tensor.copy_ that reads and writes
+    nbytes / 2 bytes each -- the same traffic as the kernel's -- cold, as
+    time_select times it: what one pass over these bytes costs on this
+    card at this size, launch and DRAM latency included."""
+    src = torch.empty(nbytes // 8, device=dev)
+    dst = torch.empty_like(src)
+
+    def go():
+        for i in range(TIMED_LAUNCHES):
+            flush.fill_(float(i))
+            dst.copy_(src)
+    durs = [d for n, d in kernel_events(go, ("kernel", "gpu_memcpy"))
+            if "fill" not in n.lower()]
+    check(len(durs) == TIMED_LAUNCHES,
+          f"{len(durs)} copy kernels traced for {TIMED_LAUNCHES} copies")
+    return float(np.median(durs))
+
+
+def timing_phase(dev, card: str) -> dict:
+    """Phase 10: device time of both selection kernels at the main path's
+    shapes against their bounds, and the wrappers' host time."""
+    from nerf_texture_tpu_torch.ops import proxy_select as ops
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = {}
+    for seed, (kind, N, K, cap) in enumerate(TIMED_SHAPES):
+        args = selection_inputs(N, K, 30 + seed, dev)
+        fname = "proxy_select" if kind == "topk" else "proxy_select_cdf"
+        res = time_select(getattr(ops, fname), args, cap, flush)
+        bound_ms, bound_by, nbytes = select_bound(kind, N, K, cap)
+        res.update(bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms * 1e3 / res["device_us"],
+                   copy_us=copy_floor_us(nbytes, flush, dev))
+        out[(kind, N, K, cap)] = res
+        print(f"timing: {fname} [{N}, {K}] cap {cap}: kernel "
+              f"{res['device_us']:.2f} us cold (HBM), "
+              f"{res['device_us_warm']:.2f} us warm (L2); bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by}, "
+              f"{100 * res['bound_share']:.1f}% of it cold; a copy_ of "
+              f"the same bytes {res['copy_us']:.2f} us; wrapper "
+              f"{res['wrapper_us']:.2f} us a call (median of "
+              f"{TIMED_LAUNCHES} launches, torch.profiler) ({card})")
+    del flush
+    torch.cuda.empty_cache()
+    return out
 
 
 def seeded_curved(trainer, table_scale: float):
@@ -366,13 +508,11 @@ def curved_phase(dev, card: str, ds, timing: dict) -> dict:
     torch.cuda.synchronize()
     err = check_selection("proxy_select_cdf", got, ref, N, K, cap,
                           zero_unfilled=False, args=args)
-    ms = cuda_ms(lambda: proxy_select_cdf(*args, cap=cap, w_eps=1e-4))
     plain = cuda_ms(lambda: proxy_select_cdf_reference(*args, cap=cap,
                                                        w_eps=1e-4))
-    timing[(N, K, cap)] = (ms, plain)
+    timing[(N, K, cap)] = plain
     print(f"kernel: proxy_select_cdf [{N}, {K}] cap {cap}: max abs err "
-          f"{err:.3g}; kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} "
-          f"us ({card})")
+          f"{err:.3g}; plain version {plain * 1e3:.2f} us a call ({card})")
 
     # -- live and pool frames ---------------------------------------------
     poses = [orbit_pose(1.25 + 0.1 * i, 2 * np.pi * (i + 0.5) / 8, 2.0)
@@ -525,9 +665,18 @@ def main() -> int:
     kernels.load_library("proxy_select")
     print(f"build: proxy_select.cu {build.path.name} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {build.seconds:.2f} s)")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        build.log)
     for line in build.log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    if build.seconds == 0.0:
+        print("  (the library was built before this run: no ptxas lines)")
+    else:
+        check(len(spills) >= 8, f"ptxas printed {len(spills)} spill lines "
+              f"for 8 kernels")
+        check(all(a == "0" and b == "0" for a, b in spills),
+              f"a selection kernel spills registers: {spills}")
 
     # -- 3. kernel vs plain version on the card ------------------------------
     max_err = 0.0
@@ -540,13 +689,12 @@ def main() -> int:
         err = check_selection("proxy_select_cdf", got, ref, N, K, cap,
                               zero_unfilled=False, args=args)
         max_err = max(max_err, err)
-        ms = cuda_ms(lambda: proxy_select_cdf(*args, cap=cap, w_eps=1e-4))
         plain = cuda_ms(lambda: proxy_select_cdf_reference(
             *args, cap=cap, w_eps=1e-4))
-        timing[(N, K, cap)] = (ms, plain)
+        timing[(N, K, cap)] = plain
         print(f"kernel: proxy_select_cdf [{N}, {K}] cap {cap}: max abs err "
-              f"{err:.3g}; kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} "
-              f"us ({card})")
+              f"{err:.3g}; plain version {plain * 1e3:.2f} us a call "
+              f"({card})")
 
     # -- 4. port on the card vs port on the CPU ------------------------------
     mcfg_s = ngp.NGPConfig(**SMALL_NGP)
@@ -669,14 +817,12 @@ def main() -> int:
         err = check_selection("proxy_select", got, ref, N, K, cap,
                               zero_unfilled=True)
         topk_err = max(topk_err, err)
-        ms = cuda_ms(lambda: proxy_select(*args, cap=cap, w_eps=1e-4))
         plain = cuda_ms(lambda: proxy_select_reference(*args, cap=cap,
                                                        w_eps=1e-4))
-        timing[(N, K, cap)] = (ms, plain)
+        timing[(N, K, cap)] = plain
         print(f"kernel: proxy_select [{N}, {K}] cap {cap}: max abs err "
               f"{err:.3g}, {int(got[2].sum())} kept of {N * cap} slots; "
-              f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us "
-              f"({card})")
+              f"plain version {plain * 1e3:.2f} us a call ({card})")
 
     # -- 7. training at full width -------------------------------------------
     # Training multiplies f32 gradients, which TF32 would round: full f32.
@@ -808,28 +954,50 @@ def main() -> int:
     # -- 9. the curved model's serving path ----------------------------------
     curved = curved_phase(dev, card, ds, timing)
 
+    # -- 10. the selection kernels' device time vs their bounds -------------
+    timed = timing_phase(dev, card)
+
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
-    # the selection timings at this slice's shape: the curved live chunk
-    ms, plain = timing[(16384, 24, 5)]
-    ms_t, plain_t = timing[(16384, 24, 8)]
     cdf_paths = {"ngp_serving_slice": slice_launches,
                  "ngp_trained_render": launches["cdf"],
                  "curved_live": curved["launches"]}
+
+    def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
+        """One kernel's entry of the JSON line at its main-path shape
+        [16384, K] cap (device times cold, from HBM, unless _warm), with
+        the other timed shapes under ``by_shape``."""
+        def cell(key):
+            t = timed[key]
+            return {"device_us": t["device_us"],
+                    "device_us_warm": t["device_us_warm"],
+                    "bound_us": t["bound_ms"] * 1e3,
+                    "bound_share": t["bound_share"],
+                    "wrapper_us": t["wrapper_us"],
+                    "copy_us": t["copy_us"],
+                    "plain_ms": timing[key[1:]]}
+        key = (kind, 16384, K, cap)
+        t = timed[key]
+        return {"name": name, "route": "cuda",
+                "source": "nerf_texture_tpu_torch/csrc/proxy_select.cu",
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths, "max_abs_err": err,
+                "ms": t["device_us"] / 1e3,
+                "plain_ms": timing[key[1:]], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "shape": f"[16384, {K}] cap {cap}", **cell(key),
+                "by_shape": {f"[16384, {K}] cap {c}": cell((kind, 16384, K,
+                                                            c))
+                             for c in other},
+                "card": card}
+
     print(json.dumps({"kernels": [
-        {"name": "proxy_select_cdf", "route": "cuda",
-         "source": "nerf_texture_tpu_torch/csrc/proxy_select.cu",
-         "replaces": "nerf_texture_tpu/ops/proxy_select.py:96",
-         "launches": sum(cdf_paths.values()),
-         "launches_by_path": cdf_paths,
-         "max_abs_err": max(max_err, curved["max_abs_err"]), "ms": ms,
-         "plain_ms": plain, "shape": "[16384, 24] cap 5"},
-        {"name": "proxy_select", "route": "cuda",
-         "source": "nerf_texture_tpu_torch/csrc/proxy_select.cu",
-         "replaces": "nerf_texture_tpu/ops/proxy_select.py:49",
-         "launches": launches["topk"],
-         "launches_by_path": {"ngp_trained_render_topk": launches["topk"]},
-         "max_abs_err": topk_err, "ms": ms_t, "plain_ms": plain_t,
-         "shape": "[16384, 24] cap 8"}]}))
+        kernel_line("proxy_select_cdf", "cdf", 24, 5,
+                    "nerf_texture_tpu/ops/proxy_select.py:96", cdf_paths,
+                    max(max_err, curved["max_abs_err"]), other=(4,)),
+        kernel_line("proxy_select", "topk", 24, 8,
+                    "nerf_texture_tpu/ops/proxy_select.py:49",
+                    {"ngp_trained_render_topk": launches["topk"]},
+                    topk_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -29,7 +29,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
-def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
+def params_from_jax(tree: Any, device: torch.device | str = "cuda") -> Any:
     """Nested dicts / lists / tuples of arrays -> the same structure of
     tensors, e.g. an NGP ``{"grid": [R, 128], "sigma_net": [{"w": [in,
     out]}, ...], "color_net": [...]}``."""
@@ -41,7 +41,7 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
 
 
 def occupancy_from_jax(density, occ, mean_density, iter_density=0,
-                       device: torch.device | str = "cpu") -> OccupancyGrid:
+                       device: torch.device | str = "cuda") -> OccupancyGrid:
     """An ``OccupancyGrid`` from the JAX grid's fields."""
     return OccupancyGrid(
         density=_tensor(np.asarray(density, np.float32), device),

@@ -105,7 +105,7 @@ def sphere_intrinsics(H: int, W: int, focal: float | None = None
 def shell_occupancy(grid_size: int, *, radius: float = 0.5,
                     half_width_cells: float = 1.0, sigma: float = 20.0,
                     bound: float = 1.0, density_thresh: float = 0.01,
-                    device: torch.device | str = "cpu") -> OccupancyGrid:
+                    device: torch.device | str = "cuda") -> OccupancyGrid:
     """Cascade-0 grid: density ``sigma`` in cells whose center lies within
     ``half_width_cells`` cells of the sphere |x| = radius (a shell about
     2 cells thick), 0 elsewhere; occ = density > density_thresh."""

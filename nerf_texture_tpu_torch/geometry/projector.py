@@ -52,7 +52,7 @@ class MeshProjector:
     def __init__(self, mesh: Mesh, *, grid_res: int | None = None,
                  max_per_cell: int = 16, tri_max_per_cell: int = 24,
                  store_uv: bool = True,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if store_uv and mesh.uvs is None:
             mesh = uv_atlas(mesh)
         self.mesh = mesh

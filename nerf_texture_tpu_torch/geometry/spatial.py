@@ -59,7 +59,7 @@ def _index(cell_items, fallback, lo, cell_size, res, device) -> GridIndex:
 
 def build_grid(points_per_item: np.ndarray, res: int, max_per_cell: int,
                n_fallback: int = 8, aabb_pad: float = 1e-3,
-               device: torch.device | str = "cpu") -> GridIndex:
+               device: torch.device | str = "cuda") -> GridIndex:
     """Index items by one representative point each ([N, 3]): every cell
     lists up to ``max_per_cell`` of its items, lowest ids first."""
     pts = np.asarray(points_per_item, np.float64)
@@ -99,7 +99,7 @@ def _build_fallback(pts, lo, cell_size, res, n_fallback):
 
 def build_triangle_grid(vertices: np.ndarray, faces: np.ndarray, res: int,
                         max_per_cell: int, n_fallback: int = 8,
-                        device: torch.device | str = "cpu") -> GridIndex:
+                        device: torch.device | str = "cuda") -> GridIndex:
     """Bin triangles into every cell their AABB overlaps (conservative);
     the fallback lists hold the triangles nearest by centroid."""
     tris = np.asarray(vertices, np.float64)[np.asarray(faces)]

@@ -125,7 +125,7 @@ class ImportedData(NamedTuple):
     local_tbn_v: torch.Tensor       # [V, 3, 3]
 
     @staticmethod
-    def empty(device: torch.device | str = "cpu") -> "ImportedData":
+    def empty(device: torch.device | str = "cuda") -> "ImportedData":
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -34,7 +34,7 @@ class OccupancyGrid(NamedTuple):
 
 
 def create(grid_size: int = 128, cascades: int = 1,
-           device: torch.device | str = "cpu") -> OccupancyGrid:
+           device: torch.device | str = "cuda") -> OccupancyGrid:
     return OccupancyGrid(
         density=torch.zeros((cascades, grid_size ** 3), dtype=torch.float32,
                             device=device),
@@ -45,7 +45,7 @@ def create(grid_size: int = 128, cascades: int = 1,
     )
 
 
-def grid_coords(grid_size: int, device=None) -> torch.Tensor:
+def grid_coords(grid_size: int, device: torch.device | str) -> torch.Tensor:
     """[H**3, 3] int64 integer cell coords in C-order (x-major)."""
     H = grid_size
     idx = torch.arange(H ** 3, device=device)

@@ -15,9 +15,13 @@ tensor it runs its ``*_reference`` twin, the plain PyTorch version of the
 same function, which is also the kernel's oracle on the card.
 
 Every prefix sum uses the Hillis-Steele association of the TPU kernels'
-``_cumsum_lanes`` (``cumsum_lanes`` below, and a warp scan in the
-kernels), so the TPU kernels, the CUDA kernels and the plain versions
-round alike.
+``_cumsum_lanes`` (``cumsum_lanes`` below, and the same passes over a
+ray's registers in the kernels), so the TPU kernels, the CUDA kernels
+and the plain versions round alike.
+
+The kernels move whole tiles of ``TILE_RAYS`` rays with bulk copies,
+which need 16-byte-aligned addresses: the wrappers raise on a tensor
+whose data pointer is not (a fresh or cloned tensor always is).
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import torch.nn.functional as F
 
 from ..kernels import load_library
 
-MAX_K = 32          # one warp per ray, one lane per proxy sample
+MAX_K = 32          # a ray's samples: 8 threads' registers, 4 a thread
 DT_CLAMP = 2.0      # segment lengths are clamped to 2 proxy bin widths
+TILE_RAYS = 32      # rays a kernel tile (kRays in csrc/proxy_select.cu)
+ALIGN = 16          # bytes: the alignment the kernels' bulk copies need
 
 
 def cumsum_lanes(x: torch.Tensor) -> torch.Tensor:
@@ -68,8 +74,7 @@ def proxy_select_cdf_reference(ts, sig, t_lo, t_hi, *, cap: int,
     tot = torch.clamp(total, min=1e-12)
     cdf = cw / tot
 
-    u = torch.tensor([(c + 0.5) / cap for c in range(cap)],
-                     dtype=sig.dtype, device=sig.device)       # [cap]
+    u = quantiles_reference(cap, sig.dtype, sig.device)       # [cap]
     below = cdf[:, None, :] < u[None, :, None]                 # [N, cap, K]
     b = torch.clamp(below.sum(-1), max=K - 1)                  # [N, cap]
     cdf_hi = torch.gather(cdf, 1, b)
@@ -85,6 +90,13 @@ def proxy_select_cdf_reference(ts, sig, t_lo, t_hi, *, cap: int,
                          clamp)
     dt2 = torch.cat([gaps, tail], dim=1)
     return ts2, dt2, valid.expand(N, cap)
+
+
+def quantiles_reference(cap: int, dtype: torch.dtype, device):
+    """The plain version's stratified quantiles u = (c + 0.5) / cap,
+    computed in double and rounded to ``dtype``."""
+    return torch.tensor([(c + 0.5) / cap for c in range(cap)], dtype=dtype,
+                        device=device)
 
 
 def proxy_select_reference(ts, sig, t_lo, t_hi, *, cap: int,
@@ -132,12 +144,24 @@ def proxy_select_reference(ts, sig, t_lo, t_hi, *, cap: int,
 
 
 @functools.cache
-def _launcher(name: str, n_ptr: int, n_float: int):
-    """The C entry point ``name`` of csrc/proxy_select.cu: ``n_ptr``
-    tensor pointers, (n, k, cap), ``n_float`` floats, the stream."""
+def quantile_table(cap: int):
+    """The CDF kernel's ``cap`` quantiles, a ctypes float array built once
+    per cap: (c + 0.5) / cap in double, rounded to f32 as the plain
+    version's ``quantiles_reference`` rounds it."""
+    return (ctypes.c_float * cap)(*[(c + 0.5) / cap for c in range(cap)])
+
+
+@functools.cache
+def _launcher(name: str):
+    """The C entry point ``name`` of csrc/proxy_select.cu with its
+    argument types: tensor pointers, (for the CDF) the host quantile
+    table, (n, k, cap), floats, the stream."""
     fn = getattr(load_library("proxy_select"), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = {
+        "proxy_select_cdf_launch": [ptr] * 7 + [i32] * 3 + [f32] * 2 + [ptr],
+        "proxy_select_launch": [ptr] * 7 + [i32] * 3 + [f32] + [ptr],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -154,8 +178,8 @@ def _check_kernel_inputs(fname: str, ts, sig, t_lo, t_hi, cap: int):
     N, K = sig.shape
     if K > MAX_K:
         raise ValueError(f"{fname}: K={K} proxy samples exceed the CUDA "
-                         f"kernel's limit of {MAX_K} (one warp lane per "
-                         f"sample)")
+                         f"kernel's limit of {MAX_K} (4 samples a thread, "
+                         f"8 threads a ray)")
     if not 1 <= cap <= K:
         raise ValueError(f"{fname}: cap={cap} must be in [1, K={K}]")
     for name, t, shape in (("ts", ts, (N, K)), ("sig", sig, (N, K)),
@@ -174,20 +198,42 @@ def _check_kernel_inputs(fname: str, ts, sig, t_lo, t_hi, cap: int):
     return N, K
 
 
-def _outputs(N: int, cap: int, device):
-    """Uninitialised [N, cap] (f32, f32, bool) outputs: the kernels write
-    every slot."""
+def _pointers(fname: str, named):
+    """The data pointers of the (name, tensor) pairs; raise unless each is
+    16-byte aligned, as the kernels' bulk copies need."""
+    ptrs = []
+    for name, t in named:
+        ptr = t.data_ptr()
+        if ptr % ALIGN:
+            raise ValueError(f"{fname}: {name} is not {ALIGN}-byte aligned "
+                             f"(data_ptr {ptr:#x}); the kernel's bulk "
+                             f"copies need it (pass a fresh or cloned "
+                             f"tensor)")
+        ptrs.append(ptr)
+    return ptrs
+
+
+def _outputs(fname: str, N: int, cap: int, device):
+    """Uninitialised [N, cap] (f32, f32, bool) outputs, which the kernels
+    write in full, and their data pointers."""
     a = torch.empty((N, cap), dtype=torch.float32, device=device)
-    return a, torch.empty_like(a), torch.empty((N, cap), dtype=torch.bool,
-                                               device=device)
+    outs = (a, torch.empty_like(a),
+            torch.empty((N, cap), dtype=torch.bool, device=device))
+    return outs, _pointers(fname, zip(("ts2", "out1", "valid2"), outs))
 
 
 def _run(fname: str, launch, device, *args):
-    """Launch on the current stream of ``device``; raise on a refused
-    launch (the C function returns cudaGetLastError())."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(*args, stream)
+    """Launch on the current stream of ``device`` (entering it only when
+    it is not the current device); raise on a refused launch (the C
+    function returns cudaGetLastError()).  The stream's handle comes from
+    torch's raw getter (the one Triton's launcher calls), which skips
+    building a torch.cuda.Stream and its few microseconds a call."""
+    if device.index == torch.cuda.current_device():
+        err = launch(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = launch(*args,
+                         torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{fname}: kernel launch failed with cudaError "
                            f"{err}")
@@ -206,15 +252,18 @@ def proxy_select_cdf(ts, sig, t_lo, t_hi, *, cap: int, w_eps: float):
                                           w_eps=w_eps)
     N, K = _check_kernel_inputs("proxy_select_cdf", ts, sig, t_lo, t_hi,
                                 cap)
-    ts2, dt2, valid2 = _outputs(N, cap, sig.device)
+    p_sig, p_lo, p_hi = _pointers("proxy_select_cdf", (
+        ("sig", sig), ("t_lo", t_lo), ("t_hi", t_hi)))
+    outs, (p_ts2, p_dt2, p_v2) = _outputs("proxy_select_cdf", N, cap,
+                                          sig.device)
     if N == 0:
-        return ts2, dt2, valid2
-    _run("proxy_select_cdf", _launcher("proxy_select_cdf_launch", 6, 2),
-         sig.device, sig.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
-         ts2.data_ptr(), dt2.data_ptr(), valid2.data_ptr(), N, K, cap,
-         float(w_eps), DT_CLAMP)
+        return outs
+    _run("proxy_select_cdf", _launcher("proxy_select_cdf_launch"),
+         sig.device, p_sig, p_lo, p_hi, p_ts2, p_dt2, p_v2,
+         ctypes.addressof(quantile_table(cap)), N, K, cap, float(w_eps),
+         DT_CLAMP)
     proxy_select_cdf.launches += 1
-    return ts2, dt2, valid2
+    return outs
 
 
 proxy_select_cdf.launches = 0
@@ -233,15 +282,15 @@ def proxy_select(ts, sig, t_lo, t_hi, *, cap: int, w_eps: float):
         return proxy_select_reference(ts, sig, t_lo, t_hi, cap=cap,
                                       w_eps=w_eps)
     N, K = _check_kernel_inputs("proxy_select", ts, sig, t_lo, t_hi, cap)
-    ts2, skip2, valid2 = _outputs(N, cap, sig.device)
+    ptrs = _pointers("proxy_select", (("ts", ts), ("sig", sig),
+                                      ("t_lo", t_lo), ("t_hi", t_hi)))
+    outs, out_ptrs = _outputs("proxy_select", N, cap, sig.device)
     if N == 0:
-        return ts2, skip2, valid2
-    _run("proxy_select", _launcher("proxy_select_launch", 7, 1), sig.device,
-         ts.data_ptr(), sig.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
-         ts2.data_ptr(), skip2.data_ptr(), valid2.data_ptr(), N, K, cap,
-         float(w_eps))
+        return outs
+    _run("proxy_select", _launcher("proxy_select_launch"), sig.device,
+         *ptrs, *out_ptrs, N, K, cap, float(w_eps))
     proxy_select.launches += 1
-    return ts2, skip2, valid2
+    return outs
 
 
 proxy_select.launches = 0

@@ -248,8 +248,10 @@ class CurvedTrainer:
     def __init__(self, dataset, field_state: MeshFieldState,
                  ccfg: CurvedFieldConfig, rcfg: RenderConfig,
                  tcfg: CurvedTrainConfig, *, seed: int = 0,
-                 device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+                 device: torch.device | str = "cuda"):
+        # the concrete device ("cuda" -> cuda:<current>), as a tensor's
+        # device reads; raises where there is no such device
+        self.device = torch.empty(0, device=device).device
         if field_state.projector.vertices.device != self.device:
             raise ValueError(
                 f"CurvedTrainer on {self.device}: the field state lives on "

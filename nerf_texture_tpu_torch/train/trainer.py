@@ -282,7 +282,7 @@ class Trainer:
 
     def __init__(self, dataset, model_cfg: ngp.NGPConfig,
                  render_cfg: RenderConfig, train_cfg: TrainConfig, *,
-                 seed: int = 0, device: torch.device | str = "cpu"):
+                 seed: int = 0, device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         self.dataset = dataset
         self.mcfg = model_cfg

@@ -83,9 +83,9 @@ def setup():
     p["field"]["encoder"][:, :rw] *= 1e4
     p["field"]["normal"]["phi_grid"] *= 1e3
     pj = jax.tree.map(jnp.asarray, p)
-    pt = params_from_jax(p)
+    pt = params_from_jax(p, device="cpu")
     mp_j = JaxMeshProjector(jax_icosphere(2, radius=0.5))
-    mp_t = MeshProjector(make_icosphere(2, radius=0.5))
+    mp_t = MeshProjector(make_icosphere(2, radius=0.5), device="cpu")
     tab = jax_build_anchor_table(mp_j.arrays, GRID, 1.0, k=8,
                                  max_dist=4 * 0.12 + 4.0 / GRID)
     rng = np.random.default_rng(0)
@@ -350,7 +350,8 @@ def test_colour_net_forward_matches(setup, dir_degree):
     s_j, c_j, _ = jcf.forward(jax.tree.map(jnp.asarray, p), setup["sj"],
                               jnp.asarray(x), jnp.asarray(v), cj,
                               frames=setup["fj"])
-    s_t, c_t, _ = tcf.forward(params_from_jax(p), setup["st"], _t(x), _t(v),
+    s_t, c_t, _ = tcf.forward(params_from_jax(p, device="cpu"), setup["st"],
+                              _t(x), _t(v),
                               ct, frames=setup["ft"])
     _assert_sigma_close(s_t, s_j)
     _close(c_t, c_j, 1e-2)

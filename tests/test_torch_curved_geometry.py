@@ -39,7 +39,7 @@ MAX_DIST = 4.0 * 0.12 + 2.0 * (2.0 / GRID)   # the trainer's anchor gate
 def projectors():
     m_j = jmesh.make_icosphere(2, radius=0.5)
     m_t = tmesh.make_icosphere(2, radius=0.5)
-    return jproj.MeshProjector(m_j), tproj.MeshProjector(m_t)
+    return jproj.MeshProjector(m_j), tproj.MeshProjector(m_t, device="cpu")
 
 
 def _np(a):
@@ -157,7 +157,7 @@ def test_knn_breaks_ties_by_lower_id():
     verts = np.array([[1, 0, 0], [0, 1, 0], [-1, 0, 0], [0, -1, 0],
                       [0, 0, 3], [0, 0, -3]], np.float64)
     perm = np.array([3, 5, 0, 4, 1, 2])
-    g = tspatial.build_grid(verts[perm], 2, 8)
+    g = tspatial.build_grid(verts[perm], 2, 8, device="cpu")
     d, i = tspatial.knn(g, torch.as_tensor(verts[perm], dtype=torch.float32),
                         torch.zeros((1, 3)), k=4)
     inv = np.argsort(perm)

@@ -103,11 +103,13 @@ def trainers():
     occ = tj.state.occ
     ds_t = tsyn.SyntheticSphereDataset(n_frames=4, H=HW, W=HW)
     tt = tct.CurvedTrainer(ds_t, mesh_field.make_state(MeshProjector(
-        make_icosphere(2, radius=0.5))), ct, rt, tct.CurvedTrainConfig())
-    tt.state.params = params_from_jax(p)
+        make_icosphere(2, radius=0.5), device="cpu")), ct, rt,
+        tct.CurvedTrainConfig(), device="cpu")
+    tt.state.params = params_from_jax(p, device="cpu")
     tt.state.ema_params = tt.state.params
     tt.state.occ = occupancy_from_jax(occ.density, occ.occ,
-                                      occ.mean_density, occ.iter_density)
+                                      occ.mean_density, occ.iter_density,
+                                      device="cpu")
     return tj, tt
 
 
@@ -184,7 +186,7 @@ def test_grid_refresh_matches_jax_with_its_jitter(trainers):
         key, ccfg=cj, rcfg=rj, near_cells=near, anchor_tab=tab_j,
         rt=tj.runtime)
     st_t = dataclasses.replace(
-        tt.state, occ=tct.occ_mod.create(rt.grid_size, 1))
+        tt.state, occ=tct.occ_mod.create(rt.grid_size, 1, device="cpu"))
     st_t = tct.curved_grid_step(
         st_t, tt.field_state, [torch.from_numpy(noise)], ccfg=ct, rcfg=rt,
         near_cells=near, anchor_tab=torch.from_numpy(np.array(tab_j)),

@@ -82,7 +82,7 @@ def test_sh_encode_matches(degree):
 
 def test_converter_keeps_structure_and_values():
     p = _jax_params()
-    t = params_from_jax(p)
+    t = params_from_jax(p, device="cpu")
     assert set(t) == {"grid", "sigma_net", "color_net"}
     np.testing.assert_array_equal(t["grid"].numpy(), p["grid"])
     for net in ("sigma_net", "color_net"):
@@ -94,12 +94,12 @@ def test_converter_keeps_structure_and_values():
     g = g._replace(density=g.density.at[0, 5].set(3.0),
                    occ=g.occ.at[5].set(1), mean_density=jnp.float32(0.25))
     o = occupancy_from_jax(np.asarray(g.density), np.asarray(g.occ),
-                           np.asarray(g.mean_density))
+                           np.asarray(g.mean_density), device="cpu")
     assert o.density.dtype == torch.float32 and o.occ.dtype == torch.uint8
     np.testing.assert_array_equal(o.density.numpy(), np.asarray(g.density))
     np.testing.assert_array_equal(o.occ.numpy(), np.asarray(g.occ))
     assert float(o.mean_density) == 0.25 and o.cascades == 1
-    e = tocc.create(8, 1)
+    e = tocc.create(8, 1, device="cpu")
     assert e.density.shape == g.density.shape and e.occ.shape == g.occ.shape
 
 
@@ -119,7 +119,8 @@ def test_apply_mlp_matches():
     p = _jax_params()
     x = np.random.default_rng(3).normal(size=(500, 16)).astype(np.float32)
     layers = p["sigma_net"]
-    got = apply_mlp(params_from_jax(layers), torch.from_numpy(x)).numpy()
+    got = apply_mlp(params_from_jax(layers, device="cpu"),
+                    torch.from_numpy(x)).numpy()
     want = np.asarray(jax_apply_mlp(jax.tree.map(jnp.asarray, layers),
                                     jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-2)
@@ -128,7 +129,7 @@ def test_apply_mlp_matches():
 def test_density_color_forward_match():
     p = _jax_params()
     jcfg, tcfg = jngp.NGPConfig(**NGP_KW), tngp.NGPConfig(**NGP_KW)
-    pj, pt = jax.tree.map(jnp.asarray, p), params_from_jax(p)
+    pj, pt = jax.tree.map(jnp.asarray, p), params_from_jax(p, device="cpu")
     x = np.random.default_rng(7).uniform(-1, 1, (800, 3)).astype(np.float32)
     d = _dirs(800, 8)
     for bf16 in (None, "bf16"):
@@ -165,8 +166,8 @@ def test_density_f32_table_follows_train_table_bf16(train_table_bf16):
     x = np.random.default_rng(9).uniform(-1, 1, (2000, 3)).astype(np.float32)
     s_j, g_j = jngp.density(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
                             jngp.NGPConfig(**kw))
-    s_t, g_t = tngp.density(params_from_jax(p), torch.from_numpy(x),
-                            tngp.NGPConfig(**kw))
+    s_t, g_t = tngp.density(params_from_jax(p, device="cpu"),
+                            torch.from_numpy(x), tngp.NGPConfig(**kw))
     s_j, g_j = np.asarray(s_j), np.asarray(g_j)
     assert s_j.min() < 0.5 and s_j.max() > 2.0
     s_off = np.abs(s_t.numpy() - s_j) > 1e-5 * np.abs(s_j) + 1e-6

@@ -3,7 +3,10 @@ fixtures equal to the JAX package's, and a kernel build that never falls
 back."""
 
 import dataclasses
+import importlib
+import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -174,6 +177,54 @@ def test_ray_sampling_and_psnr():
     a, b = rng.uniform(size=(2, 6, 5, 3)).astype(np.float32)
     assert psnr(torch.from_numpy(a), b) == jax_psnr(a, b)
     assert psnr(a, a) == jax_psnr(a, a) == 99.0
+
+
+def _device_params():
+    """(where, default) of every parameter named ``device`` of the
+    package's public functions, classes and their methods."""
+    import nerf_texture_tpu_torch as pkg
+
+    found = []
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns = [(f"{name}.{m}", f) for m, f in vars(obj).items()
+                       if (m == "__init__" or not m.startswith("_"))]
+                fns = [(n, f.__func__ if isinstance(f, (staticmethod,
+                                                        classmethod)) else f)
+                       for n, f in fns]
+            for qual, fn in fns:
+                if not inspect.isfunction(fn):
+                    continue
+                param = inspect.signature(fn).parameters.get("device")
+                if param is not None:
+                    found.append((f"{mod.__name__}.{qual}", param.default))
+    return found
+
+
+def test_no_device_defaults_to_the_cpu():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: no ``device`` parameter defaults to the CPU (or to None,
+    torch's CPU default)."""
+    found = _device_params()
+    where = {w for w, _ in found}
+    for entry in ("nerf_texture_tpu_torch.train.trainer.Trainer.__init__",
+                  "nerf_texture_tpu_torch.train.curved_trainer."
+                  "CurvedTrainer.__init__",
+                  "nerf_texture_tpu_torch.geometry.projector."
+                  "MeshProjector.__init__",
+                  "nerf_texture_tpu_torch.convert.params_from_jax",
+                  "nerf_texture_tpu_torch.convert.occupancy_from_jax"):
+        assert entry in where, entry
+    cpu = [(w, d) for w, d in found if d is None
+           or (d is not inspect.Parameter.empty
+               and torch.device(d).type == "cpu")]
+    assert not cpu, cpu
 
 
 def test_no_kernel_no_fallback_on_other_devices():

@@ -21,8 +21,9 @@ import pytest
 import torch
 
 from nerf_texture_tpu_torch.ops.proxy_select import (
-    cumsum_lanes, proxy_select, proxy_select_cdf, proxy_select_cdf_reference,
-    proxy_select_reference)
+    TILE_RAYS, cumsum_lanes, proxy_select, proxy_select_cdf,
+    proxy_select_cdf_reference, proxy_select_reference, quantile_table,
+    quantiles_reference)
 
 ATOL = 1e-5
 W_EPS = 1e-4
@@ -121,6 +122,17 @@ def test_cumsum_lanes_is_a_cumsum():
                                rtol=0, atol=1e-5)
 
 
+def test_quantile_table_is_the_plain_versions_u():
+    # the CDF kernel takes its quantiles from the wrapper's host table:
+    # bit for bit the f32 values the plain version compares against
+    for cap in range(1, 33):
+        got = np.frombuffer(quantile_table(cap), dtype=np.float32)
+        want = quantiles_reference(cap, torch.float32, "cpu").numpy()
+        assert got.shape == want.shape == (cap,)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
 def test_quantiles_are_ordered_inside_span():
     ts, sig, t_lo, t_hi = _inputs(7, 200, 24)
     ts2, dt2, valid2 = proxy_select_cdf_reference(
@@ -214,3 +226,93 @@ def test_topk_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         proxy_select(sig[:, :20].contiguous(), sig, t, t + 1, cap=4,
                      w_eps=W_EPS)
+
+
+# Tile edges of the kernels: one ray, a tile less one, a tile and one, a
+# full-width chunk plus a ragged tail, and four chunks plus a ragged tail
+# (more tiles than the card holds blocks at once), over the K and cap the
+# renders use.  A CDF slot in a bin holding little of the ray's weight is
+# held in CDF space (see _cdf_slack).
+EDGE_N = [1, TILE_RAYS - 1, TILE_RAYS + 1, 16384 + 3, 65536 + 3]
+EDGE_KC = [(K, cap) for K in (16, 24, 32) for cap in (1, 4, 5, 8, K)]
+CDF_ATOL = 1e-6
+
+
+def _cdf_slack(args, ts2, valid2):
+    """Per CDF slot, the t error that a CDF_ATOL error of the normalised
+    CDF makes in the bin where the plain version put it: dts * CDF_ATOL /
+    (the bin's share of the ray's weight), at most one bin width (16 ulps
+    near 1 of the CDF; a quantile in a nearly empty bin amplifies a
+    last-bit difference of the CDF into t)."""
+    _, sig, t_lo, t_hi = args
+    K = sig.shape[1]
+    dts = torch.clamp(t_hi - t_lo, min=0.0)[:, None] / K
+    sdt = sig * dts
+    w = torch.exp(-(cumsum_lanes(sdt) - sdt)) * (1.0 - torch.exp(-sdt))
+    share = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
+    b = torch.floor((ts2 - t_lo[:, None]) / torch.clamp(dts, min=1e-30))
+    share = torch.gather(share, 1, torch.clamp(b.long(), 0, K - 1))
+    slack = torch.minimum(dts * CDF_ATOL / torch.clamp(share, min=1e-12),
+                          dts)
+    return torch.where(valid2, slack, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", EDGE_N)
+@pytest.mark.parametrize("K,cap", EDGE_KC)
+def test_kernels_at_tile_edges(cuda_device, N, K, cap):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _inputs(N + K + cap, N, K)]
+    for kernel, plain, cdf in ((proxy_select_cdf, proxy_select_cdf_reference,
+                                True),
+                               (proxy_select, proxy_select_reference, False)):
+        before = kernel.launches
+        got = kernel(*args, cap=cap, w_eps=W_EPS)
+        want = plain(*args, cap=cap, w_eps=W_EPS)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got[2].dtype == torch.bool and got[2].shape == (N, cap)
+        assert torch.equal(got[2], want[2])
+        slack = torch.full_like(want[0], ATOL)
+        if cdf:
+            slack = torch.maximum(slack, _cdf_slack(args, want[0], want[2]))
+        # a gap dt2[c] moves with the slots at both of its ends
+        slack1 = torch.maximum(slack, torch.cat([slack[:, 1:],
+                                                 slack[:, -1:]], dim=1))
+        assert bool(((got[0] - want[0]).abs() <= slack).all())
+        assert bool(((got[1] - want[1]).abs() <= slack1).all())
+        if not cdf:
+            off = ~got[2]
+            assert not bool(got[0][off].any())
+            assert not bool(got[1][off].any())
+
+
+@pytest.mark.cuda
+def test_kernels_reject_misaligned_tensors(cuda_device):
+    N, K = 40, 24
+    ts, sig, t_lo, t_hi = (torch.from_numpy(a).to(cuda_device)
+                           for a in _inputs(0, N, K))
+    # contiguous views 4 bytes past a 16-byte boundary
+    sig_off = torch.zeros(N * K + 1, device=cuda_device)[1:].view(N, K)
+    sig_off.copy_(sig)
+    lo_off = torch.zeros(N + 1, device=cuda_device)[1:]
+    lo_off.copy_(t_lo)
+    for select in (proxy_select_cdf, proxy_select):
+        before = select.launches
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            select(ts, sig_off, t_lo, t_hi, cap=4, w_eps=W_EPS)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            select(ts, sig, lo_off, t_hi, cap=4, w_eps=W_EPS)
+        assert select.launches == before
+        # the same values from aligned tensors launch
+        select(ts, sig_off.clone(), lo_off.clone(), t_hi, cap=4,
+               w_eps=W_EPS)
+        assert select.launches == before + 1
+    # the CDF kernel does not read ts, so a misaligned ts launches
+    ts_off = torch.zeros(N * K + 1, device=cuda_device)[1:].view(N, K)
+    ts_off.copy_(ts)
+    before = proxy_select_cdf.launches
+    proxy_select_cdf(ts_off, sig, t_lo, t_hi, cap=4, w_eps=W_EPS)
+    assert proxy_select_cdf.launches == before + 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        proxy_select(ts_off, sig, t_lo, t_hi, cap=4, w_eps=W_EPS)

@@ -175,7 +175,7 @@ def test_proxy_pallas_off_takes_topk_and_warns():
 
 @pytest.mark.parametrize("grid", [32, 64])
 def test_prepass_arrays_match(grid):
-    occ = shell_occupancy(grid)
+    occ = shell_occupancy(grid, device="cpu")
     dens = occ.density.numpy().copy()
     rng = np.random.default_rng(grid)
     salt = rng.choice(dens.shape[1], 40, replace=False)
@@ -195,7 +195,7 @@ def test_prepass_arrays_match(grid):
 
 
 def _prepass_inputs(grid, H, W, B, pose):
-    occ = shell_occupancy(grid)
+    occ = shell_occupancy(grid, device="cpu")
     cfg = tr.RenderConfig(grid_size=grid, **PROXY_KW)
     st = tr.PrepassState.build(occ.occ, cfg, density=occ.density)
     intr_b = sphere_intrinsics(H, W) / B
@@ -262,7 +262,7 @@ def _whole_slice(**change):
     jm = jngp.NGPConfig(**NGP_KW)
     p = jax.tree.map(np.asarray, jngp.init(jax.random.PRNGKey(0), jm))
     p["grid"] = p["grid"] * 1e4          # sigma well above and below 1
-    occ = shell_occupancy(SLICE_RENDER["grid_size"])
+    occ = shell_occupancy(SLICE_RENDER["grid_size"], device="cpu")
     intr = sphere_intrinsics(H, W)
     pose = orbit_pose(1.2, 0.7, 2.0)     # not a training pose
     kw = dict(SLICE_RENDER, **change)
@@ -272,7 +272,7 @@ def _whole_slice(**change):
         jr.RenderConfig(**kw), sigma_apply=jax_sigma_apply,
         color_apply=jax_color_apply,
         density=jnp.asarray(occ.density.numpy()))
-    got = render_frame(params_from_jax(p), occ, pose, intr, H, W,
+    got = render_frame(params_from_jax(p, device="cpu"), occ, pose, intr, H, W,
                        tngp.NGPConfig(**NGP_KW), tr.RenderConfig(**kw))
     img_t, img_j = _np(got["image"]), np.asarray(want["image"])
     assert img_t.shape == (H, W, 3)
@@ -297,7 +297,7 @@ def test_whole_slice_topk_matches_jax_render_image():
 
 
 def test_empty_grid_renders_background():
-    occ = shell_occupancy(16, sigma=0.0)
+    occ = shell_occupancy(16, sigma=0.0, device="cpu")
     cfg = tr.RenderConfig(grid_size=16, **PROXY_KW)
     mcfg = tngp.NGPConfig(**NGP_KW)
     params = tngp.init(torch.Generator().manual_seed(0), mcfg)
@@ -308,7 +308,7 @@ def test_empty_grid_renders_background():
 
 
 def test_unported_branches_raise():
-    occ = shell_occupancy(16)
+    occ = shell_occupancy(16, device="cpu")
     intr = sphere_intrinsics(16, 16)
     pose = orbit_pose(1.2, 0.7, 2.0)
     mcfg = tngp.NGPConfig(**NGP_KW)
@@ -336,7 +336,8 @@ def test_unported_branches_raise():
 
 def test_tau_sweep_cap_warns():
     # every block of a 6400-block frame hits a fully occupied grid
-    occ = shell_occupancy(8, radius=0.0, half_width_cells=100.0)
+    occ = shell_occupancy(8, radius=0.0, half_width_cells=100.0,
+                          device="cpu")
     cfg = tr.RenderConfig(grid_size=8, **dict(PROXY_KW, prepass_block=2))
     st = tr.PrepassState.build(occ.occ, cfg, density=occ.density)
 

@@ -95,12 +95,13 @@ def _jax_state(scene, seed=0):
 
 def _port_state(jstate):
     """The port's state holding the JAX state's params and grid."""
-    params = params_from_jax(jax.tree.map(np.asarray, jstate.params))
+    params = params_from_jax(jax.tree.map(np.asarray, jstate.params),
+                             device="cpu")
     st = tt.init_train_state(torch.Generator(), CFG_T["mcfg"], CFG_T["rcfg"],
                              CFG_T["tcfg"], params=params)
     o = jstate.occ
     st.occ = occupancy_from_jax(o.density, o.occ, o.mean_density,
-                                o.iter_density)
+                                o.iter_density, device="cpu")
     return st
 
 
@@ -163,9 +164,9 @@ def test_mark_untrained_matches(scene):
     want = jocc.mark_untrained(fresh, jnp.asarray(ds.poses[:2]),
                                jnp.asarray(ds.intrinsics), grid_size=GRID,
                                cascades=1, bound=1.0)
-    got = tocc.mark_untrained(tocc.create(GRID, 1), sc["poses"][:2],
-                              sc["intrinsics"], grid_size=GRID, cascades=1,
-                              bound=1.0)
+    got = tocc.mark_untrained(tocc.create(GRID, 1, device="cpu"),
+                              sc["poses"][:2], sc["intrinsics"],
+                              grid_size=GRID, cascades=1, bound=1.0)
     d = np.asarray(want.density)
     assert 0 < (d < 0).mean() < 1
     np.testing.assert_array_equal(_np(got.density), d)
@@ -219,7 +220,7 @@ def test_render_rays_pool_path_matches_with_gradients(scene):
 
     (lj, out_j), g_j = jax.value_and_grad(loss_j, has_aux=True)(
         jax.tree.map(jnp.asarray, params))
-    pt = jax.tree.map(lambda a: a, params_from_jax(params))
+    pt = jax.tree.map(lambda a: a, params_from_jax(params, device="cpu"))
     for leaf in tt.param_leaves(pt):
         leaf.requires_grad_(True)
     out_t = tr.render_rays(
@@ -298,12 +299,13 @@ def test_adam_ema_and_lr_decay_match_optax():
     opt = jt.make_optimizer(tcfg_j)
     pj = jax.tree.map(jnp.asarray, params)
     opt_state, ema_j = opt.init(pj), pj
-    pt = params_from_jax(params)
+    pt = params_from_jax(params, device="cpu")
     for leaf in tt.param_leaves(pt):
         leaf.requires_grad_(True)
     o, s = tt.make_optimizer(pt, tcfg_t)
     state = tt.TrainState(params=pt, optimizer=o, scheduler=s,
-                          ema_params=params_from_jax(params), occ=None)
+                          ema_params=params_from_jax(params, device="cpu"),
+                          occ=None)
     for step in range(5):                     # past total_steps: lr floor
         g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(
             np.float32) * (rng.uniform(size=a.shape) < 0.8), params)
