@@ -10,7 +10,10 @@ weights and the training path (``train.trainer.Trainer``: ``train``,
 ``eval_psnr``, ``render_frame``), whose trained field is rendered through
 both survivor selections; at the width of its curved arm the curved
 model's serving path (``CurvedTrainer.initialize_states`` and
-``render_frame``, live and ``parity=True``) over seeded weights.
+``render_frame``, live and ``parity=True``) over seeded weights, and its
+training path (``CurvedTrainer.train``, 700 steps), whose trained field
+is rendered live, through the pool and through the baked atlas
+(``bake_atlas``, ``render_frame(baked=True)``).
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
@@ -50,7 +53,18 @@ result line:
               pool frames, kernels a frame from one torch.profiler frame
               of each, and a small frame of both paths on the card vs the
               CPU port;
- 10. timing:  each selection kernel's device time from torch.profiler's
+ 10. curved train: proxy_select_cdf vs plain at the baked render's
+              shapes [16384, 16] cap 5 and [16384, 20] cap 6; then
+              CurvedTrainer at the same width from seeded weights with
+              bench.py's schedule (initialize_states(1), 17 + 48 timed +
+              635 steps): the loss is finite, it/s, one profiled step,
+              s per refresh, peak memory; the trained field at the novel
+              pose: live, pool and EMA parity frames, the bake, baked
+              frames at cap 5 K 16 and cap 6 K 20 -- each PSNR gated at
+              the JAX package's cell less 1 dB, the live and baked frames
+              held against their plain-selection frames, launches ==
+              chunks, ms/frame over 3 poses;
+ 11. timing:  each selection kernel's device time from torch.profiler's
               kernel events (median of 60 launches; cold with 64 MiB
               written between launches, and warm with sig just written),
               against its bound and beside a copy_ of the same bytes,
@@ -93,13 +107,14 @@ CDF_ATOL = 1e-6
 FRAME_PSNR_MIN = 45.0
 FRAME_MAX_ABS = 5e-2
 FRAME_LIVE_MISMATCH = 0.005
-# kernel frame vs plain-selection frame on the card: the selections
-# agree within SELECT_ATOL in t, but where a ray's CDF plateaus (an empty
-# gap between the front and back crossings of the shell) at a level
-# within rounding of a quantile u, the quantile jumps across the gap in
-# one version and not the other: a few such pixels differ by up to a
-# sample's contribution.  So the bound is on the frame's PSNR and on the
-# share of pixels that differ by more than 1e-3.
+# kernel frame vs plain-selection frame on the card: the kernels round
+# as the plain versions do, so the frames are expected equal.  Should
+# the selections part by an ulp, a quantile whose ray's CDF plateaus (an
+# empty gap between the front and back crossings of the shell) at a
+# level within rounding of u jumps across the gap in one version only,
+# and a few pixels differ by up to a sample's contribution: the bounds
+# are on the frame's PSNR, its largest difference and the share of
+# pixels that differ by more than 1e-3.
 TWIN_FRAME_PSNR_MIN = 60.0
 TWIN_FRAME_MAX_ABS = 5e-2
 TWIN_FRAME_OFF_SHARE = 1e-3
@@ -110,7 +125,7 @@ TRAIN_PSNR_MIN = 26.0
 NOVEL_PSNR_MIN = 23.0
 JAX_TRAIN_PSNR, JAX_NOVEL_PSNR = 27.07, 23.94
 
-# Kernel timing (phase 10): the selection kernels at the main path's
+# Kernel timing (phase 11): the selection kernels at the main path's
 # shapes -- the curved live chunk (CDF cap 5), the NGP renders (CDF cap 4)
 # and the NGP top-k render (cap 8) -- each over TIMED_LAUNCHES launches.
 # Bounds use the H100 SXM's published rates (NVIDIA's data sheet, 700 W):
@@ -167,6 +182,21 @@ SMALL_CURVED_RENDER = dict(bound=1.0, cascades=1, grid_size=32,
                            ray_chunk=1024, pool_mean_samples_infer=16,
                            proxy_samples=0, proxy_refined=24,
                            infer_color_cap=5)
+# bench.py's curved schedule (bench.py:368-385): 17 steps, 48 timed
+# steps (3 refresh cycles), the rest to 700
+CURVED_WARM_STEPS, CURVED_TIMED_STEPS, CURVED_TRAIN_STEPS = 17, 48, 700
+# its baked render (bench.py:455-476): cap 5 K 16 over the block-8 carve,
+# then the cap 6 K 20 quality line; the selection kernel at those chunks
+CURVED_BAKED = dict(prepass_block=8, prepass_tau_cull=0.1, proxy_refined=16)
+CURVED_BAKED_CAP6 = dict(infer_color_cap=6, proxy_refined=20)
+BAKED_SHAPES = [(16384, 16, 5), (16384, 20, 6)]
+# the JAX package's curved cells after the same 700 steps (BENCH_r05.json)
+# and the gates: each less 1 dB for the port's other random streams (the
+# margin of the NGP gates); the EMA parity frame also keeps the bench's
+# own absolute gate of 24 dB
+JAX_CURVED_PSNR = {"live": 26.65, "pool": 26.59, "ema_parity": 26.63,
+                   "baked": 26.43, "baked_cap6": 27.16}
+CURVED_PSNR_MIN = {k: round(v - 1.0, 2) for k, v in JAX_CURVED_PSNR.items()}
 # seeded curved params: the encoder's mean lanes are U(-1e-4, 1e-4) and
 # the phi grid U(0, 1e-3) at init; scaled by 1e4 and 1e3 the features
 # and the fine normals vary and the field has structure
@@ -272,10 +302,19 @@ def frame_checks(out, H, W, name):
           f"{name}: no pixel composites any weight")
 
 
-def twin_stats(a: np.ndarray, b: np.ndarray):
-    """(PSNR, max abs, share of pixels off by > 1e-3) of two frames."""
-    return (psnr(a, b), float(np.abs(a - b).max()),
-            float(np.mean(np.abs(a - b).max(-1) > 1e-3)))
+def check_twin(name, img_k, img_p, card):
+    """A kernel frame against its plain-selection frame: PSNR, max abs
+    and the share of pixels off by > 1e-3, held to the TWIN_FRAME_*
+    limits."""
+    t_psnr, t_err = psnr(img_p, img_k), float(np.abs(img_p - img_k).max())
+    t_off = float(np.mean(np.abs(img_p - img_k).max(-1) > 1e-3))
+    print(f"{name}: kernel frame vs plain-selection frame: PSNR "
+          f"{t_psnr:.2f} dB, max abs {t_err:.3g}, pixels off by > 1e-3: "
+          f"{t_off:.2e} ({card})")
+    check(t_psnr >= TWIN_FRAME_PSNR_MIN and t_err <= TWIN_FRAME_MAX_ABS
+          and t_off <= TWIN_FRAME_OFF_SHARE,
+          f"{name} kernel frame vs plain-selection frame: PSNR {t_psnr} dB, "
+          f"max abs {t_err}, share off {t_off}")
 
 
 def kernel_events(fn, cats=("kernel",)):
@@ -352,15 +391,13 @@ def time_select(select, args, cap: int, flush) -> dict:
             for i in range(TIMED_LAUNCHES):
                 before(i)
                 select(*args, cap=cap, w_eps=1e-4)
-        durs = [d for n, d in kernel_events(go) if name.search(n)]
-        check(len(durs) == TIMED_LAUNCHES,
-              f"{len(durs)} selection kernels traced for {TIMED_LAUNCHES} "
-              f"launches")
-        return float(np.median(durs))
+        durs = traced_durations(go, lambda n: name.search(n), ("kernel",),
+                                "selection kernels")
+        return float(np.median(durs)), len(durs)
 
     select(*args, cap=cap, w_eps=1e-4)                 # warm-up
-    warm = run(lambda i: sig.copy_(src))
-    cold = run(lambda i: flush.fill_(float(i)))
+    warm, n_warm = run(lambda i: sig.copy_(src))
+    cold, n_cold = run(lambda i: flush.fill_(float(i)))
     host = []
     for _ in range(WRAPPER_BATCHES):
         torch.cuda.synchronize()
@@ -370,7 +407,26 @@ def time_select(select, args, cap: int, flush) -> dict:
         host.append((time.perf_counter() - t0) / WRAPPER_CALLS * 1e6)
     torch.cuda.synchronize()
     return {"device_us": cold, "device_us_warm": warm,
-            "wrapper_us": float(np.median(host))}
+            "wrapper_us": float(np.median(host)),
+            "traced": min(n_cold, n_warm)}
+
+
+def traced_durations(go, pick, cats, what: str) -> list[float]:
+    """Device durations (us) of the kernels ``pick`` selects by name in
+    a trace of go(), which launches TIMED_LAUNCHES of them.  After the
+    curved training phase the trace has been seen to miss some kernel
+    records (35 and 57 of 60), so the fullest of three traces is taken
+    and must hold at least half of the launches."""
+    best: list[float] = []
+    for _ in range(3):
+        durs = [d for n, d in kernel_events(go, cats) if pick(n)]
+        if len(durs) > len(best):
+            best = durs
+        if len(best) == TIMED_LAUNCHES:
+            break
+    check(TIMED_LAUNCHES // 2 <= len(best) <= TIMED_LAUNCHES,
+          f"{len(best)} {what} traced for {TIMED_LAUNCHES} launches")
+    return best
 
 
 def copy_floor_us(nbytes: int, flush, dev) -> float:
@@ -385,15 +441,13 @@ def copy_floor_us(nbytes: int, flush, dev) -> float:
         for i in range(TIMED_LAUNCHES):
             flush.fill_(float(i))
             dst.copy_(src)
-    durs = [d for n, d in kernel_events(go, ("kernel", "gpu_memcpy"))
-            if "fill" not in n.lower()]
-    check(len(durs) == TIMED_LAUNCHES,
-          f"{len(durs)} copy kernels traced for {TIMED_LAUNCHES} copies")
+    durs = traced_durations(go, lambda n: "fill" not in n.lower(),
+                            ("kernel", "gpu_memcpy"), "copies")
     return float(np.median(durs))
 
 
 def timing_phase(dev, card: str) -> dict:
-    """Phase 10: device time of both selection kernels at the main path's
+    """Phase 11: device time of both selection kernels at the main path's
     shapes against their bounds, and the wrappers' host time."""
     from nerf_texture_tpu_torch.ops import proxy_select as ops
 
@@ -415,7 +469,8 @@ def timing_phase(dev, card: str) -> dict:
               f"{100 * res['bound_share']:.1f}% of it cold; a copy_ of "
               f"the same bytes {res['copy_us']:.2f} us; wrapper "
               f"{res['wrapper_us']:.2f} us a call (median of "
-              f"{TIMED_LAUNCHES} launches, torch.profiler) ({card})")
+              f"{res['traced']} or more of {TIMED_LAUNCHES} launches "
+              f"traced, torch.profiler) ({card})")
     del flush
     torch.cuda.empty_cache()
     return out
@@ -425,8 +480,9 @@ def seeded_curved(trainer, table_scale: float):
     """Scale the seeded curved params (see PHI_SCALE) and render them."""
     field = trainer.state.params["field"]
     rw = trainer.ccfg.field.feature_spec.row_width
-    field["encoder"][:, :rw] *= table_scale
-    field["normal"]["phi_grid"] *= PHI_SCALE
+    with torch.no_grad():                # the params are trainable leaves
+        field["encoder"][:, :rw] *= table_scale
+        field["normal"]["phi_grid"] *= PHI_SCALE
     trainer.state.ema_params = trainer.state.params
 
 
@@ -549,14 +605,7 @@ def curved_phase(dev, card: str, ds, timing: dict) -> dict:
     live = stats["live"]
     img_k = live["outs"][0]["image"].cpu().numpy()
     img_p = tr.render_frame(poses[1], plain_select=True)["image"].cpu().numpy()
-    t_psnr, t_err, t_off = twin_stats(img_p, img_k)
-    print(f"curved: live kernel frame vs plain-selection frame: PSNR "
-          f"{t_psnr:.2f} dB, max abs {t_err:.3g}, pixels off by > 1e-3: "
-          f"{t_off:.2e} ({card})")
-    check(t_psnr >= TWIN_FRAME_PSNR_MIN and t_err <= TWIN_FRAME_MAX_ABS
-          and t_off <= TWIN_FRAME_OFF_SHARE,
-          f"curved kernel frame vs plain-selection frame: PSNR {t_psnr} dB, "
-          f"max abs {t_err}, share off {t_off}")
+    check_twin("curved: live", img_k, img_p, card)
     p_lp = psnr(stats["pool"]["outs"][0]["image"].cpu().numpy(), img_k)
     for name in ("live", "pool"):
         st = stats[name]
@@ -613,6 +662,224 @@ def curved_phase(dev, card: str, ds, timing: dict) -> dict:
     return {"launches": live["launches"], "max_abs_err": err}
 
 
+def op_shares(fn, top: int = 8):
+    """(op, share of the device time) of the ``top`` aten ops by self
+    device time over one call of fn (torch.profiler's key_averages)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    rows = [(k, t) for k, t in rows if t > 0 and k.startswith("aten::")]
+    total = sum(t for _, t in rows) or 1.0
+    return [(k[6:], t / total) for k, t in sorted(rows, key=lambda r: -r[1])
+            ][:top]
+
+
+def white_gt(ds, pose):
+    """The analytic ground truth of a pose on a white background."""
+    from nerf_texture_tpu_torch.data.synthetic import render_gt_sphere
+
+    gt = render_gt_sphere(pose, ds.intrinsics, ds.H, ds.W, ds.sphere_radius)
+    a = gt[..., 3:].astype(np.float32) / 255.0
+    return gt[..., :3].astype(np.float32) / 255.0 * a + (1.0 - a)
+
+
+def timed_frames(render, poses):
+    """(ms per frame, outputs, launches of proxy_select_cdf, chunks) over
+    the poses; the kernel's count is set to 0 first and read after."""
+    from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
+
+    proxy_select_cdf.launches = 0
+    walls, outs = [], []
+    for pose in poses:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(render(pose))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls, outs, proxy_select_cdf.launches, sum(o["chunks"]
+                                                       for o in outs)
+
+
+def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
+    """Phase 10: curved training at the width of bench.py's curved arm
+    (its schedule: initialize_states(1), train(17), a timed train(48),
+    the rest to 700 steps), then the trained field at the novel pose: the
+    live, pool and EMA parity frames, the bake, the baked frames at cap 5
+    K 16 and cap 6 K 20, each PSNR gated against the JAX package's cell.
+    Returns the selection launches of the trained live and baked frames
+    and the selection error at the baked shapes."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.ops.proxy_select import (
+        proxy_select_cdf, proxy_select_cdf_reference)
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    # training multiplies f32 gradients, and the curved shading f32
+    # operands, which TF32 would round: full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # -- the selection kernel at the baked render's shapes -----------------
+    err = 0.0
+    for seed, (N, K, cap) in enumerate(BAKED_SHAPES):
+        args = selection_inputs(N, K, 50 + seed, dev)
+        got = proxy_select_cdf(*args, cap=cap, w_eps=1e-4)
+        ref = proxy_select_cdf_reference(*args, cap=cap, w_eps=1e-4)
+        torch.cuda.synchronize()
+        e = check_selection("proxy_select_cdf", got, ref, N, K, cap,
+                            zero_unfilled=False, args=args)
+        err = max(err, e)
+        plain = cuda_ms(lambda: proxy_select_cdf_reference(
+            *args, cap=cap, w_eps=1e-4))
+        timing[(N, K, cap)] = plain
+        print(f"kernel: proxy_select_cdf [{N}, {K}] cap {cap}: max abs err "
+              f"{e:.3g}; plain version {plain * 1e3:.2f} us a call ({card})")
+
+    # -- training -----------------------------------------------------------
+    ccfg = CurvedFieldConfig(field=MeshFieldConfig(), light_model="SH")
+    rcfg = RenderConfig(**CURVED_RENDER)
+    tcfg = CurvedTrainConfig(**CURVED_TRAIN)
+    tr = CurvedTrainer(ds, mesh_field.make_state(MeshProjector(
+        make_icosphere(4, radius=0.5), device=dev)), ccfg, rcfg, tcfg,
+        seed=7, device=dev)
+    tr._get_near_cells()                     # host set-up, timed in phase 9
+    tr._anchor_table()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.initialize_states(1)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    first = tr.train(CURVED_WARM_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = tr.train(CURVED_TIMED_STEPS)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    # one step without a refresh (the count is not a multiple of 16)
+    check(tr.state.step % tcfg.grid_update_interval != 0,
+          "the profiled step would refresh the grid")
+    n_k, k_ms = profile_frame(lambda: tr.train(1))
+    shares = op_shares(lambda: tr.train(1))
+    rest = tr.train(CURVED_TRAIN_STEPS - tr.state.step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = np.asarray(first["losses"] + timed["losses"] + rest["losses"])
+    its = CURVED_TIMED_STEPS / timed_s
+    occupied = int(tr.state.occ.occ.sum())
+    print(f"curved train: loss step 1 {first['losses'][0]:.5f}, step "
+          f"{CURVED_WARM_STEPS} {first['losses'][-1]:.5f}, step "
+          f"{tr.state.step} {rest['loss']:.5f}; {CURVED_TIMED_STEPS} steps "
+          f"(3 refresh cycles) in {timed_s:.2f} s = {its:.2f} it/s; one "
+          f"profiled step: {n_k} CUDA kernels, {k_ms:.2f} ms of kernel time "
+          f"({card})")
+    print(f"curved train: by op (self device time of one step): "
+          f"{', '.join(f'{k} {100 * s:.1f}%' for k, s in shares)} ({card})")
+    print(f"curved train: a grid refresh {refresh_s:.3f} s; "
+          f"{int(tr.state.occ.iter_density)} refreshes, {occupied} of "
+          f"{rcfg.grid_size ** 3} cells occupied; peak memory {peak:.1f} "
+          f"MiB ({card})")
+    check(bool(np.isfinite(losses).all()), "non-finite curved training loss")
+    check(tr.state.step == CURVED_TRAIN_STEPS, f"{tr.state.step} steps")
+    check(0 < occupied < rcfg.grid_size ** 3, f"occupied cells {occupied}")
+
+    # -- the trained field at the novel pose --------------------------------
+    npose = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    gt = white_gt(ds, npose)
+    timed_poses = [ds.poses[1 + i] for i in range(3)]
+    tr.render_frame(ds.poses[0], use_ema=False)               # warm-up
+    walls, outs, live_launches, live_chunks = timed_frames(
+        lambda p: tr.render_frame(p, use_ema=False), [npose] + timed_poses)
+    check(live_launches > 0 and live_launches == live_chunks,
+          f"trained live: {live_launches} kernel launches for {live_chunks} "
+          f"chunks")
+    for o in outs:
+        frame_checks(o, ds.H, ds.W, "trained live")
+    live_img = outs[0]["image"]
+    psnrs = {"live": psnr_of(live_img, gt)}
+    check_twin("curved trained live", live_img.cpu().numpy(),
+               tr.render_frame(npose, use_ema=False,
+                               plain_select=True)["image"].cpu().numpy(),
+               card)
+    psnrs["pool"] = psnr_of(tr.render_frame(npose, use_ema=False,
+                                            parity=True)["image"], gt)
+    psnrs["ema_parity"] = psnr_of(tr.render_frame(npose, use_ema=True,
+                                                  parity=True)["image"], gt)
+    live_ms = walls[1:]
+    live_prof = profile_frame(lambda: tr.render_frame(timed_poses[0],
+                                                      use_ema=False))
+
+    # -- the bake and the baked frames --------------------------------------
+    tr.rcfg = dataclasses.replace(rcfg, **CURVED_BAKED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bake, _ = tr.bake_atlas()
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    tiles = int(bake.tile_of_cell.max()) + 1
+    tr.render_frame(ds.poses[0], use_ema=False, baked=True)   # warm-up
+    walls, outs, baked_launches, baked_chunks = timed_frames(
+        lambda p: tr.render_frame(p, use_ema=False, baked=True),
+        [npose] + timed_poses)
+    check(baked_launches > 0 and baked_launches == baked_chunks,
+          f"baked: {baked_launches} kernel launches for {baked_chunks} "
+          f"chunks")
+    for o in outs:
+        frame_checks(o, ds.H, ds.W, "baked")
+    psnrs["baked"] = psnr_of(outs[0]["image"], gt)
+    check_twin("curved baked", outs[0]["image"].cpu().numpy(),
+               tr.render_frame(npose, use_ema=False, baked=True,
+                               plain_select=True)["image"].cpu().numpy(),
+               card)
+    baked_ms = walls[1:]
+    baked_prof = profile_frame(lambda: tr.render_frame(
+        timed_poses[0], use_ema=False, baked=True))
+    tr.rcfg = dataclasses.replace(tr.rcfg, **CURVED_BAKED_CAP6)
+    proxy_select_cdf.launches = 0
+    out6 = tr.render_frame(npose, use_ema=False, baked=True)
+    check(proxy_select_cdf.launches == out6["chunks"],
+          "baked cap 6: launches != chunks")
+    baked_launches += proxy_select_cdf.launches
+    psnrs["baked_cap6"] = psnr_of(out6["image"], gt)
+    print(f"curved bake: {bake_s:.2f} s, {tiles} tiles of {bake.T}x{bake.T} "
+          f"texels, atlas {bake.atlas.shape[0]} x {bake.atlas.shape[1]} "
+          f"bf16 ({card})")
+    for name, ms, chunks, (n_k, k_ms) in (
+            ("live", live_ms, live_chunks, live_prof),
+            ("baked", baked_ms, baked_chunks, baked_prof)):
+        print(f"curved trained {name} {ds.H}x{ds.W}: "
+              f"{', '.join(f'{w:.2f}' for w in ms)} ms/frame (median "
+              f"{float(np.median(ms)):.2f}) over {len(ms)} poses; "
+              f"{chunks} chunks and as many launches over 4 frames; one "
+              f"profiled frame: {n_k} CUDA kernels, {k_ms:.2f} ms of kernel "
+              f"time ({card})")
+    for name in CURVED_PSNR_MIN:
+        print(f"curved quality: {name} {psnrs[name]:.2f} dB at the novel pose "
+              f"(JAX package {JAX_CURVED_PSNR[name]}, gap "
+              f"{psnrs[name] - JAX_CURVED_PSNR[name]:+.2f}; gate "
+              f">= {CURVED_PSNR_MIN[name]}) ({card})")
+    for name, floor in CURVED_PSNR_MIN.items():
+        check(psnrs[name] >= floor, f"curved {name} PSNR {psnrs[name]:.2f} "
+              f"< {floor}")
+    check(psnrs["ema_parity"] >= 24.0, "the EMA parity gate is below 24 dB")
+    del tr, bake
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return {"live": live_launches, "baked": baked_launches,
+            "max_abs_err": err}
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
@@ -645,8 +912,7 @@ def main() -> int:
     from nerf_texture_tpu_torch import kernels
     from nerf_texture_tpu_torch.data.poses import orbit_pose
     from nerf_texture_tpu_torch.data.synthetic import (
-        SyntheticSphereDataset, render_gt_sphere, shell_occupancy,
-        sphere_intrinsics)
+        SyntheticSphereDataset, shell_occupancy, sphere_intrinsics)
     from nerf_texture_tpu_torch.models import ngp
     from nerf_texture_tpu_torch.ops.proxy_select import (
         proxy_select, proxy_select_cdf, proxy_select_cdf_reference,
@@ -785,16 +1051,7 @@ def main() -> int:
 
     img_k = outs[0]["image"].cpu().numpy()
     img_p = frame(poses[1], plain_select=True)["image"].cpu().numpy()
-    twin_err = float(np.abs(img_p - img_k).max())
-    twin_psnr = psnr(img_p, img_k)
-    twin_off = float(np.mean(np.abs(img_p - img_k).max(-1) > 1e-3))
-    print(f"slice: kernel frame vs plain-selection frame: PSNR "
-          f"{twin_psnr:.2f} dB, max abs {twin_err:.3g}, pixels off by "
-          f"> 1e-3: {twin_off:.2e}")
-    check(twin_psnr >= TWIN_FRAME_PSNR_MIN and twin_err <= TWIN_FRAME_MAX_ABS
-          and twin_off <= TWIN_FRAME_OFF_SHARE,
-          f"kernel frame vs plain-selection frame: PSNR {twin_psnr} dB, max "
-          f"abs {twin_err}, share off {twin_off}")
+    check_twin("slice", img_k, img_p, card)
     lives = [out["live"] for out in outs]
     print(f"slice: {H}x{W} frames: {', '.join(f'{w:.2f}' for w in walls)} "
           f"ms/frame (median {float(np.median(walls)):.2f}) over "
@@ -875,11 +1132,6 @@ def main() -> int:
                             rcfg_topk, prepass=prepass_topk,
                             plain_select=plain_select)
 
-    def white_gt(pose):
-        gt = render_gt_sphere(pose, ds.intrinsics, H, W, ds.sphere_radius)
-        a = gt[..., 3:].astype(np.float32) / 255.0
-        return gt[..., :3].astype(np.float32) / 255.0 * a + (1.0 - a)
-
     novel = [orbit_pose(np.pi / 2 + 0.2, 0.3 + 0.1 * i, ds.radius)
              for i in range(4)]
     topk_frame(novel[0])                               # warm-up
@@ -892,7 +1144,7 @@ def main() -> int:
     proxy_select_cdf.launches = 0
     proxy_select.launches = 0
     out = topk_frame(ds.poses[0])
-    psnr_train_topk = psnr_of(out["image"], white_gt(ds.poses[0]))
+    psnr_train_topk = psnr_of(out["image"], white_gt(ds, ds.poses[0]))
     chunks = {"cdf": 0, "topk": out["chunks"]}
     walls = {"cdf": [], "topk": []}
     outs = {}
@@ -908,7 +1160,7 @@ def main() -> int:
             outs.setdefault(name, out)
     launches = {"cdf": proxy_select_cdf.launches,
                 "topk": proxy_select.launches}
-    gt_novel = white_gt(novel[0])
+    gt_novel = white_gt(ds, novel[0])
     psnr_novel = {k: psnr_of(outs[k]["image"], gt_novel) for k in outs}
     for name in ("cdf", "topk"):
         img = outs[name]["image"]
@@ -919,12 +1171,7 @@ def main() -> int:
               f"{chunks[name]} chunks")
     img_k = outs["topk"]["image"].cpu().numpy()
     img_p = topk_frame(novel[0], plain_select=True)["image"].cpu().numpy()
-    twin_err = float(np.abs(img_p - img_k).max())
-    twin_psnr = psnr(img_p, img_k)
-    twin_off = float(np.mean(np.abs(img_p - img_k).max(-1) > 1e-3))
-    print(f"render: top-k kernel frame vs plain-selection frame: PSNR "
-          f"{twin_psnr:.2f} dB, max abs {twin_err:.3g}, pixels off by > "
-          f"1e-3: {twin_off:.2e}")
+    check_twin("render: top-k", img_k, img_p, card)
     print(f"render: trained field, inverse CDF cap 4: training view "
           f"{psnr_train:.2f} dB (JAX package {JAX_TRAIN_PSNR}, gap "
           f"{psnr_train - JAX_TRAIN_PSNR:+.2f}), novel view "
@@ -939,10 +1186,6 @@ def main() -> int:
               f"{len(novel)} novel poses; live rays {outs[name]['live']}, "
               f"chunks/frame {outs[name]['chunks']}; launches "
               f"{launches[name]} for {chunks[name]} chunks ({card})")
-    check(twin_psnr >= TWIN_FRAME_PSNR_MIN and twin_err <= TWIN_FRAME_MAX_ABS
-          and twin_off <= TWIN_FRAME_OFF_SHARE,
-          f"top-k kernel frame vs plain-selection frame: PSNR {twin_psnr} "
-          f"dB, max abs {twin_err}, share off {twin_off}")
     check(psnr_train >= TRAIN_PSNR_MIN, f"training-view PSNR {psnr_train} "
           f"< {TRAIN_PSNR_MIN}")
     check(psnr_novel["cdf"] >= NOVEL_PSNR_MIN, f"novel-view PSNR "
@@ -954,13 +1197,18 @@ def main() -> int:
     # -- 9. the curved model's serving path ----------------------------------
     curved = curved_phase(dev, card, ds, timing)
 
-    # -- 10. the selection kernels' device time vs their bounds -------------
+    # -- 10. curved training, and the trained live, pool and baked frames --
+    trained = curved_train_phase(dev, card, ds, timing)
+
+    # -- 11. the selection kernels' device time vs their bounds -------------
     timed = timing_phase(dev, card)
 
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
     cdf_paths = {"ngp_serving_slice": slice_launches,
                  "ngp_trained_render": launches["cdf"],
-                 "curved_live": curved["launches"]}
+                 "curved_live": curved["launches"],
+                 "curved_trained_live": trained["live"],
+                 "curved_baked": trained["baked"]}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape
@@ -993,7 +1241,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_line("proxy_select_cdf", "cdf", 24, 5,
                     "nerf_texture_tpu/ops/proxy_select.py:96", cdf_paths,
-                    max(max_err, curved["max_abs_err"]), other=(4,)),
+                    max(max_err, curved["max_abs_err"],
+                        trained["max_abs_err"]), other=(4,)),
         kernel_line("proxy_select", "topk", 24, 8,
                     "nerf_texture_tpu/ops/proxy_select.py:49",
                     {"ngp_trained_render_topk": launches["topk"]},

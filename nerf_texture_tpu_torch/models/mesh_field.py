@@ -10,12 +10,13 @@ frequency encoding encodes h.  With the probabilistic model the table
 is dual (feature mean + log-variance per brick row) and, outside
 inference, the features get reparameterised noise; the noise is an
 argument here (the JAX function draws it from its key), so that a test
-can hand the port JAX's draw.
+can hand the port JAX's draw.  The regularisers (clustering, KL) read
+the table's feature lanes.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
 the exact per-sample projection (``mode='none'`` without frames, item
-7), the import modes (item 11.2), the vertex-feature encoder (item 8)
-and the regularisers (item 9).
+7), the import modes (item 11.2) and the vertex-feature encoder (item
+8).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..geometry.projector import MeshProjector, ProjectorArrays
 from ..ops.encoding import freq_encode, freq_encode_dim
 from ..ops.hashgrid_packed import (PackedGridSpec, packed_encode_bound,
                                    packed_encode_bound_dual)
+from . import clustering as clus
 from . import normal_net
 
 
@@ -176,9 +178,8 @@ def init(generator: torch.Generator, cfg: MeshFieldConfig) -> dict[str, Any]:
     else:
         params = {"encoder": spec.init(generator)}
     if cfg.clustering:
-        u = torch.rand((cfg.num_levels, cfg.n_clusters, cfg.level_dim),
-                       generator=generator, device=generator.device)
-        params["clusters"] = u * 2e-4 - 1e-4
+        params["clusters"] = clus.init_cluster_centers(
+            generator, cfg.num_levels, cfg.n_clusters, cfg.level_dim)
     if cfg.pred_normal:
         params["normal"] = normal_net.init(generator, cfg.normal_cfg)
     return params
@@ -243,6 +244,11 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
         x_embed, log_var = packed_encode_bound_dual(
             p_sur, params["encoder"], cfg.feature_spec, bound=cfg.bound,
             amp=amp)
+        if noise.shape != log_var.shape:
+            # a draw of another size would broadcast silently
+            raise ValueError(f"mesh_field.apply: noise of shape "
+                             f"{tuple(noise.shape)} for features of shape "
+                             f"{tuple(log_var.shape)}")
         # the exponent is clamped: an untied log-variance lane drifting
         # high would overflow exp and NaN the frame
         x_embed = x_embed + noise * torch.exp(torch.clamp(log_var, -20.0,
@@ -276,7 +282,39 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
                        theta=theta, phi=phi_angle)
 
 
-def regular_loss(params, cfg: MeshFieldConfig, key=None):
-    raise NotImplementedError(
-        "mesh_field.regular_loss (clustering / KL regularisers) belongs to "
-        "curved training; ROADMAP Queue 1, item 9")
+def clustering_loss(params, cfg: MeshFieldConfig, level: int | None = None):
+    """The clustering regulariser over the hash table's feature lanes:
+    level ``level`` (the JAX function's random pick), or every level
+    summed; 0.0 without ``clustering``."""
+    if not cfg.clustering:
+        return 0.0
+    if cfg.encoder_type != "hash":
+        raise NotImplementedError(
+            "mesh_field.clustering_loss: the vertex-feature encoder is not "
+            "ported; ROADMAP Queue 1, item 8")
+    spec = cfg.feature_spec
+    slices = [(spec.offsets[i], spec.offsets[i + 1])
+              for i in range(cfg.num_levels)]
+    return clus.clustering_loss(params["encoder"], slices, params["clusters"],
+                                level=level, level_dim=cfg.level_dim,
+                                row_width=spec.row_width)
+
+
+def kl_loss(params, cfg: MeshFieldConfig, normal: bool = False):
+    """VAE prior on the probabilistic features: over the dual table's
+    log-variance lanes [rw, 2 rw) (and with ``normal`` the means [0, rw)
+    too); the padding lanes beyond 2 rw are never read.  Not part of the
+    training loss (as in the JAX package)."""
+    if not cfg.prob_model or cfg.encoder_type != "hash":
+        return 0.0
+    rw = cfg.feature_spec.row_width
+    f_var = params["encoder"][:, rw:2 * rw]
+    if normal:
+        f_mu = params["encoder"][:, :rw]
+        return 0.5 * torch.sum(torch.exp(f_var) + f_mu ** 2 - 1.0 - f_var)
+    return 0.5 * torch.sum(torch.exp(f_var) - 1.0 - f_var)
+
+
+def regular_loss(params, cfg: MeshFieldConfig, level: int | None = None):
+    """The field's regulariser in the training loss: 1e-8 x clustering."""
+    return 1e-8 * clustering_loss(params, cfg, level)

@@ -4,7 +4,8 @@
 The fine normal is R(theta, phi) in the local TBN frame: phi (azimuth)
 comes from its own hash grid over surface points plus the low z bands,
 theta (polar tilt) from the low x / z feature bands.  The Lipschitz MLPs
-run in f32, as the JAX ones (no bf16 operands).
+run in f32, as the JAX ones (no bf16 operands); ``regularization`` is
+their Lipschitz bound, a training regulariser.
 """
 
 from __future__ import annotations
@@ -47,16 +48,19 @@ def apply_lip_mlp(layers, x: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def lip_regularization(layers):
-    raise NotImplementedError(
-        "normal_net.lip_regularization belongs to curved training; ROADMAP "
-        "Queue 1, item 9")
+def lip_regularization(layers) -> torch.Tensor:
+    """The product of softplus(c) over the layers: the Lipschitz bound of
+    the MLP."""
+    loss = 1.0
+    for lyr in layers:
+        loss = loss * F.softplus(lyr["c"])
+    return loss
 
 
-def regularization(params):
-    raise NotImplementedError(
-        "normal_net.regularization belongs to curved training; ROADMAP "
-        "Queue 1, item 9")
+def regularization(params) -> torch.Tensor:
+    """Lipschitz bounds of the phi and theta MLPs, summed."""
+    return (lip_regularization(params["phi_net"])
+            + lip_regularization(params["theta_net"]))
 
 
 @dataclasses.dataclass(frozen=True)

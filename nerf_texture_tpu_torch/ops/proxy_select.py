@@ -51,6 +51,15 @@ def cumsum_lanes(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _per_sample(span: torch.Tensor, K: int) -> torch.Tensor:
+    """span / K, rounded once.  The divisor is a tensor: on CUDA, PyTorch
+    divides by a Python scalar as a multiply by its rounded reciprocal,
+    which for a K that is not a power of two can differ from the
+    quotient (that the JAX kernels and the CUDA kernels compute) in the
+    last bit."""
+    return span / torch.full_like(span, K)
+
+
 def proxy_select_cdf_reference(ts, sig, t_lo, t_hi, *, cap: int,
                                w_eps: float):
     """Plain PyTorch ``proxy_select_cdf``: ``cap`` stratified quantiles of
@@ -61,7 +70,7 @@ def proxy_select_cdf_reference(ts, sig, t_lo, t_hi, *, cap: int,
     dt2 [N, cap] f32, valid2 [N, cap] bool)."""
     N, K = sig.shape
     span = torch.clamp(t_hi - t_lo, min=0.0)[:, None]         # [N, 1]
-    dts = span / K
+    dts = _per_sample(span, K)
     sdt = sig * dts
     cs = cumsum_lanes(sdt)
     trans = torch.exp(-(cs - sdt))
@@ -113,7 +122,7 @@ def proxy_select_reference(ts, sig, t_lo, t_hi, *, cap: int,
     valid2 [N, cap] bool), with zeros in unfilled slots."""
     N, K = sig.shape
     span = torch.clamp(t_hi - t_lo, min=0.0)[:, None]         # [N, 1]
-    dts = span / K
+    dts = _per_sample(span, K)
     sdt = sig * dts
     cs = cumsum_lanes(sdt)
     trans = torch.exp(-(cs - sdt))

@@ -163,9 +163,10 @@ def train_loss(params, occ: OccupancyGrid, batch: Batch, poses, images,
     return torch.mean((out["image"] - gt_rgb) ** 2), out
 
 
-def apply_gradients(state: TrainState, tcfg: TrainConfig):
-    """The update after a backward: Adam on the params' ``.grad``, one
-    step of the LR decay, the EMA of the new params; ``state.step`` + 1."""
+def apply_gradients(state, tcfg: TrainConfig):
+    """The update after a backward, of a ``TrainState`` or a curved
+    ``CurvedTrainState``: Adam on the params' ``.grad``, one step of the
+    LR decay, the EMA of the new params; ``state.step`` + 1."""
     state.optimizer.step()
     state.scheduler.step()
     with torch.no_grad():

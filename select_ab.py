@@ -8,7 +8,7 @@ DIR holds another commit's ``nerf_texture_tpu_torch/`` (say the parent's:
 ``mkdir -p build/parent && git archive <commit> nerf_texture_tpu_torch |
 tar -x -C build/parent``), whose kernels build from its own ``csrc/`` into
 DIR/build/kernels.  At each shape that ``chip_smoke.py`` times in its
-phase 10, both wrappers are timed as that phase times them (the median
+timing phase, both wrappers are timed as that phase times them (the median
 kernel duration of 60 launches from torch.profiler, cold and warm, and
 the wrapper's host time a call) in the order other, this, this, other on
 the same inputs, and one line a shape gives every reading and the means

@@ -326,7 +326,7 @@ def test_curved_unported_raise(setup):
     ct = setup["ct"]
     args = (setup["pt"], setup["st"], _t(setup["x"][:4]), _t(setup["v"][:4]),
             ct)
-    for kw in (dict(training=True), dict(visual_mode="UV"),
+    for kw in (dict(mode="field"), dict(visual_mode="UV"),
                dict(euler_rot=torch.eye(3)),
                dict(light_import={"env_import": torch.zeros((9, 3))})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

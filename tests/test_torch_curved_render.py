@@ -272,10 +272,20 @@ def test_unported_paths_raise(trainers):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tct.curved_grid_step(tt.state, tt.field_state, [torch.zeros((1, 3))],
                              ccfg=ct, rcfg=rt, near_cells=[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.render_frame(pose, baked=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.train(1)
+    rcfg = tt.rcfg
+    tt.rcfg = dataclasses.replace(rcfg, deferred=True)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tt.render_frame(pose, baked=True)
+    finally:
+        tt.rcfg = rcfg
+    tcfg = tt.tcfg
+    tt.tcfg = dataclasses.replace(tcfg, distillation=True)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tt.train(1)
+    finally:
+        tt.tcfg = tcfg
     tt.visual_mode = "Nc"
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -288,6 +288,29 @@ def test_kernels_at_tile_edges(cuda_device, N, K, cap):
 
 
 @pytest.mark.cuda
+# the baked curved render's chunks: K 16 cap 5 (the bench's baked frame)
+# and K 20 cap 6 (its quality line; K 20 runs the K = 24 instantiation)
+@pytest.mark.parametrize("seed,N,K,cap", [(40, 16384, 16, 5),
+                                          (41, 16384, 20, 6)])
+def test_kernel_matches_plain_at_the_baked_shapes(cuda_device, seed, N, K,
+                                                  cap):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _inputs(seed, N, K)]
+    before = proxy_select_cdf.launches
+    got = proxy_select_cdf(*args, cap=cap, w_eps=W_EPS)
+    want = proxy_select_cdf_reference(*args, cap=cap, w_eps=W_EPS)
+    torch.cuda.synchronize()
+    assert proxy_select_cdf.launches == before + 1
+    assert torch.equal(got[2], want[2])
+    slack = torch.maximum(torch.full_like(want[0], ATOL),
+                          _cdf_slack(args, want[0], want[2]))
+    slack1 = torch.maximum(slack, torch.cat([slack[:, 1:], slack[:, -1:]],
+                                            dim=1))
+    assert bool(((got[0] - want[0]).abs() <= slack).all())
+    assert bool(((got[1] - want[1]).abs() <= slack1).all())
+
+
+@pytest.mark.cuda
 def test_kernels_reject_misaligned_tensors(cuda_device):
     N, K = 40, 24
     ts, sig, t_lo, t_hi = (torch.from_numpy(a).to(cuda_device)
