@@ -63,8 +63,24 @@ result line:
               frames at cap 5 K 16 and cap 6 K 20 -- each PSNR gated at
               the JAX package's cell less 1 dB, the live and baked frames
               held against their plain-selection frames, launches ==
-              chunks, ms/frame over 3 poses;
- 11. timing:  each selection kernel's device time from torch.profiler's
+              chunks, ms/frame over 3 poses; the live field at the baked
+              arm's settings (K 16, cap 5), beside the baked frame;
+ 11. texture: the flat texture pipeline on phase 10's trained field:
+              ``field_io.save_field`` exports 256 patches of 128^2 texels
+              (ray cast, exact projection, encode), ``QuiltingSynthesizer``
+              quilts a 2048^2 canvas on the host, ``load_field`` imports
+              it (mode 'field', 50 grid refreshes over the z = 0 slab)
+              and 800x800 frames look down onto it through
+              proxy_select_cdf and, with ``proxy_samples=32``, through
+              the two-round proxy and proxy_select; ``load_patch``
+              imports one patch (mode 'patch') and frames look at it --
+              each path's launches == chunks, ms/frame over 3 poses, one
+              profiled frame, and a frame re-rendered with the plain
+              selection agrees; then the narrow curved config on the
+              card and on the CPU port imports the same texture.npz
+              (the CPU's export, quilted) and one patch, and their 64x64
+              frames agree;
+ 12. timing:  each selection kernel's device time from torch.profiler's
               kernel events (median of 60 launches; cold with 64 MiB
               written between launches, and warm with sig just written),
               against its bound and beside a copy_ of the same bytes,
@@ -73,13 +89,15 @@ result line:
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
-(nvcc) and no network; the kernel build goes to build/kernels/.
+(nvcc) and no network; the kernel build goes to build/kernels/, the
+texture files to build/texture/.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -125,7 +143,7 @@ TRAIN_PSNR_MIN = 26.0
 NOVEL_PSNR_MIN = 23.0
 JAX_TRAIN_PSNR, JAX_NOVEL_PSNR = 27.07, 23.94
 
-# Kernel timing (phase 11): the selection kernels at the main path's
+# Kernel timing (phase 12): the selection kernels at the main path's
 # shapes -- the curved live chunk (CDF cap 5), the NGP renders (CDF cap 4)
 # and the NGP top-k render (cap 8) -- each over TIMED_LAUNCHES launches.
 # Bounds use the H100 SXM's published rates (NVIDIA's data sheet, 700 W):
@@ -197,6 +215,17 @@ BAKED_SHAPES = [(16384, 16, 5), (16384, 20, 6)]
 JAX_CURVED_PSNR = {"live": 26.65, "pool": 26.59, "ema_parity": 26.63,
                    "baked": 26.43, "baked_cap6": 27.16}
 CURVED_PSNR_MIN = {k: round(v - 1.0, 2) for k, v in JAX_CURVED_PSNR.items()}
+# the texture pipeline (phase 11) at PatchSampleConfig's shapes (128^2
+# texels, pattern rate 1/50, 16 centres a batch) with the patch budget
+# cut from 2000 to 256, quilted at QuiltingConfig's 2048^2 canvas; the
+# narrow card-vs-CPU export: 16^2 texels, 8 patches, a 64^2 canvas
+TEXTURE_PATCHES, TEXTURE_SIZE = 256, 2048
+TEXTURE_DIR = os.path.join("build", "texture")
+SMALL_TEXTURE = dict(patch_size=16, max_patch_num=8, center_batch=4,
+                     pattern_rate=1 / 4)
+SMALL_TEXTURE_SIZE = 64
+# the two-round proxy: RenderConfig's default proxy_samples
+TWO_ROUND = dict(proxy_samples=32)
 # seeded curved params: the encoder's mean lanes are U(-1e-4, 1e-4) and
 # the phi grid U(0, 1e-3) at init; scaled by 1e4 and 1e3 the features
 # and the fine normals vary and the field has structure
@@ -447,7 +476,7 @@ def copy_floor_us(nbytes: int, flush, dev) -> float:
 
 
 def timing_phase(dev, card: str) -> dict:
-    """Phase 11: device time of both selection kernels at the main path's
+    """Phase 12: device time of both selection kernels at the main path's
     shapes against their bounds, and the wrappers' host time."""
     from nerf_texture_tpu_torch.ops import proxy_select as ops
 
@@ -688,12 +717,14 @@ def white_gt(ds, pose):
     return gt[..., :3].astype(np.float32) / 255.0 * a + (1.0 - a)
 
 
-def timed_frames(render, poses):
-    """(ms per frame, outputs, launches of proxy_select_cdf, chunks) over
-    the poses; the kernel's count is set to 0 first and read after."""
+def timed_frames(render, poses, kernel=None):
+    """(ms per frame, outputs, launches of ``kernel`` (proxy_select_cdf
+    by default), chunks) over the poses; the kernel's count is set to 0
+    first and read after."""
     from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
 
-    proxy_select_cdf.launches = 0
+    kernel = kernel or proxy_select_cdf
+    kernel.launches = 0
     walls, outs = [], []
     for pose in poses:
         torch.cuda.synchronize()
@@ -701,8 +732,7 @@ def timed_frames(render, poses):
         outs.append(render(pose))
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    return walls, outs, proxy_select_cdf.launches, sum(o["chunks"]
-                                                       for o in outs)
+    return walls, outs, kernel.launches, sum(o["chunks"] for o in outs)
 
 
 def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
@@ -712,7 +742,7 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
     live, pool and EMA parity frames, the bake, the baked frames at cap 5
     K 16 and cap 6 K 20, each PSNR gated against the JAX package's cell.
     Returns the selection launches of the trained live and baked frames
-    and the selection error at the baked shapes."""
+    and the selection error at the baked shapes, and the trainer."""
     from nerf_texture_tpu_torch.data.poses import orbit_pose
     from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
     from nerf_texture_tpu_torch.geometry.projector import MeshProjector
@@ -845,6 +875,10 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
     baked_ms = walls[1:]
     baked_prof = profile_frame(lambda: tr.render_frame(
         timed_poses[0], use_ema=False, baked=True))
+    # the discriminator of the baked frame's drift: the live field at the
+    # baked arm's settings (K 16, cap 5, block 8, tau_cull 0.1)
+    psnrs["live_k16"] = psnr_of(tr.render_frame(npose, use_ema=False)[
+        "image"], gt)
     tr.rcfg = dataclasses.replace(tr.rcfg, **CURVED_BAKED_CAP6)
     proxy_select_cdf.launches = 0
     out6 = tr.render_frame(npose, use_ema=False, baked=True)
@@ -872,12 +906,310 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
     for name, floor in CURVED_PSNR_MIN.items():
         check(psnrs[name] >= floor, f"curved {name} PSNR {psnrs[name]:.2f} "
               f"< {floor}")
+    print(f"curved quality: at the baked arm's settings (K 16, cap 5): live "
+          f"{psnrs['live_k16']:.2f} dB, baked {psnrs['baked']:.2f} dB; pool - "
+          f"live K16 {psnrs['pool'] - psnrs['live_k16']:+.2f} dB, pool - "
+          f"baked {psnrs['pool'] - psnrs['baked']:+.2f} dB ({card})")
     check(psnrs["ema_parity"] >= 24.0, "the EMA parity gate is below 24 dB")
-    del tr, bake
+    del bake
+    tr.rcfg = rcfg
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = True
     return {"live": live_launches, "baked": baked_launches,
-            "max_abs_err": err}
+            "max_abs_err": err}, tr
+
+
+def quilt(field_path: str, tex_path: str, size: int) -> tuple:
+    """Quilt a field npz's patches (features || phi || local TBN) into a
+    size^2 canvas and write the texture npz, as the reference's
+    patch_matching_and_quilting does; returns the canvas's shape."""
+    from nerf_texture_tpu_torch.synthesis.quilting import (
+        QuiltingConfig, QuiltingSynthesizer)
+
+    data = np.load(field_path, allow_pickle=True)
+    ps = data["patches"].shape[1]
+    patches = np.concatenate(
+        [data["patches"], data["patch_phi_embed"],
+         data["patch_local_tbn"].reshape(*data["patch_local_tbn"].shape[:3],
+                                         9)], -1)
+    syn = QuiltingSynthesizer(
+        patches, QuiltingConfig(output_size=(size, size), seed=0),
+        match_dim=data["patches"].shape[-1],
+        sample_tbn=data["patch_sample_tbn"],
+        picked_vertices=data["picked_vertices"],
+        patch_length=float(data["grid_gap"]) * ps)
+    syn.synthesize()
+    tex = syn.export(grid_gap=float(data["grid_gap"]),
+                     phi_embed_dim=data["patch_phi_embed"].shape[-1])
+    np.savez(tex_path, **{k: v for k, v in tex.items() if v is not None})
+    return tex["features"].shape
+
+
+def facing_pose(normal, radius: float, tilt: float = 0.0):
+    """An orbit pose (looking at the origin) from the direction of
+    ``normal``, tilted by ``tilt`` in both angles."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+
+    n = np.asarray(normal, np.float64)
+    n = n / np.linalg.norm(n)
+    return orbit_pose(float(np.arccos(np.clip(n[1], -1, 1))) + tilt,
+                      float(np.arctan2(n[0], n[2])) + tilt, radius)
+
+
+def canvas_share(pose, intrinsics, H: int, W: int, bounds) -> float:
+    """Share of the frame's rays that hit the z = 0 canvas of half-extents
+    ``bounds``."""
+    from nerf_texture_tpu_torch.data.rays import get_rays
+
+    r = get_rays(torch.as_tensor(pose), torch.as_tensor(intrinsics), H, W)
+    o, d = r["rays_o"], r["rays_d"]
+    t = -o[:, 2] / torch.where(d[:, 2].abs() > 1e-9, d[:, 2], 1e-9)
+    p = o + t[:, None] * d
+    hit = (t > 0) & (p[:, 0].abs() <= float(bounds[0])) \
+        & (p[:, 1].abs() <= float(bounds[1]))
+    return float(hit.float().mean())
+
+
+def import_frames(tr, name, poses, kernel, card):
+    """800x800 frames of an imported texture: a warm-up, then the timed
+    poses[1:] with ``kernel``'s launches == chunks, frame checks, a frame
+    re-rendered with the plain selection held to its kernel frame, one
+    profiled frame; returns (launches, the first timed frame)."""
+    H, W = tr.H, tr.W
+    tr.render_frame(poses[0], use_ema=False)                  # warm-up
+    walls, outs, launches, chunks = timed_frames(
+        lambda p: tr.render_frame(p, use_ema=False), poses[1:], kernel)
+    check(launches > 0 and launches == chunks,
+          f"texture {name}: {launches} kernel launches for {chunks} chunks")
+    for o in outs:
+        frame_checks(o, H, W, f"texture {name}")
+    check_twin(f"texture {name}", outs[0]["image"].cpu().numpy(),
+               tr.render_frame(poses[1], use_ema=False, plain_select=True)[
+                   "image"].cpu().numpy(), card)
+    n_k, k_ms = profile_frame(lambda: tr.render_frame(poses[1],
+                                                      use_ema=False))
+    print(f"texture {name} {H}x{W}: "
+          f"{', '.join(f'{w:.2f}' for w in walls)} ms/frame (median "
+          f"{float(np.median(walls)):.2f}) over {len(walls)} poses; live rays "
+          f"{[o['live'] for o in outs]}; {kernel.__name__} launches "
+          f"{launches} for {chunks} chunks; one profiled frame: {n_k} CUDA "
+          f"kernels, {k_ms:.2f} ms of kernel time ({card})")
+    return launches, outs[0], k_ms
+
+
+def texture_phase(dev, card: str, ds, tr) -> dict:
+    """Phase 11: the flat texture pipeline on the trained curved field
+    ``tr`` (bench width, its RenderConfig); returns the launches of each
+    import path's frames and the grid-sample / kNN shares."""
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import (MeshProjector,
+                                                           weighted_project)
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
+                                                         proxy_select_cdf)
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.synthesis.patches import PatchSampleConfig
+    from nerf_texture_tpu_torch.train import field_io
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+    from nerf_texture_tpu_torch.utils.grid_sample import grid_sample_2d
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # curved shading
+    os.makedirs(TEXTURE_DIR, exist_ok=True)
+    field_path = os.path.join(TEXTURE_DIR, "field.npz")
+    tex_path = os.path.join(TEXTURE_DIR, "texture.npz")
+    rcfg = RenderConfig(**CURVED_RENDER)
+    tr.rcfg = rcfg
+    mesh = make_icosphere(4, radius=0.5)
+
+    # -- export, quilt ----------------------------------------------------
+    scfg = PatchSampleConfig(max_patch_num=TEXTURE_PATCHES)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = field_io.save_field(tr, field_path, mesh=mesh, scfg=scfg,
+                              stats=stats)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    kept = exp["patches"].shape[0]
+    print(f"texture: export {export_s:.2f} s: {stats['candidates']} candidate "
+          f"centres, {kept} patches kept of {scfg.patch_size}^2 texels "
+          f"(grid gap {exp['grid_gap']:.3g}), {stats['rays']} texel rays cast "
+          f"= {stats['rays'] / export_s:.4g} rays/s (with the projection and "
+          f"encode of the kept texels) ({card})")
+    # the y >= 0 veto drops about half of the 2x oversampled candidates,
+    # as in the JAX package: the budget is a ceiling
+    check(TEXTURE_PATCHES // 2 <= kept <= TEXTURE_PATCHES,
+          f"{kept} patches kept")
+    check(all(np.isfinite(exp[k]).all() for k in ("patches",
+                                                  "patch_phi_embed",
+                                                  "patch_local_tbn")),
+          "non-finite exported channels")
+    check(float(np.abs(exp["patches"]).max()) > 0, "the exported features "
+          "are all zero")
+    t0 = time.perf_counter()
+    shape = quilt(field_path, tex_path, TEXTURE_SIZE)
+    quilt_s = time.perf_counter() - t0
+    print(f"texture: quilting {quilt_s:.2f} s (host), canvas {shape[0]}x"
+          f"{shape[1]} x {shape[2]} feature channels ({card})")
+    check(shape[0] >= TEXTURE_SIZE and shape[1] >= TEXTURE_SIZE,
+          f"canvas {shape}")
+    del exp
+
+    # -- the quilted texture imported: mode 'field' ---------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field_io.load_field(tr, tex_path)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    occupied = int(tr.state.occ.occ.sum())
+    near = tr._get_near_cells().shape[0]
+    print(f"texture: load_field + initialize_states (50 refreshes over "
+          f"{near} slab cells) {init_s:.2f} s; {occupied} cells occupied "
+          f"({card})")
+    check(tr.mode == "field" and occupied > 0, "the field import is empty")
+    bounds = tr.field_state.imported.bounds.cpu().numpy()
+    down = [orbit_pose_down(0.08 * i) for i in range(4)]
+    share = canvas_share(down[1], ds.intrinsics, ds.H, ds.W, bounds)
+    print(f"texture: canvas half-extents {bounds[0]:.3f} x {bounds[1]:.3f}; "
+          f"it covers {100 * share:.1f}% of the first timed frame ({card})")
+    check(share >= 0.25, f"the canvas covers {share} of the frame")
+    launches = {}
+    launches["texture_field"], out_f, field_ms = import_frames(
+        tr, "field (CDF)", down, proxy_select_cdf, card)
+    # the grid samples' share of the frame: 4 a chunk on its survivors
+    pts = torch.rand((rcfg.ray_chunk * rcfg.infer_color_cap, 2),
+                     device=dev) * 2 - 1
+    imp = tr.field_state.imported
+    ids = imp.sample_tbn_ids_2d[..., None].float()
+    n_gs, gs_ms = profile_frame(lambda: (
+        grid_sample_2d(imp.features_2d, pts),
+        grid_sample_2d(imp.phi_embed_2d, pts),
+        grid_sample_2d(imp.local_tbn_2d, pts, mode="nearest"),
+        grid_sample_2d(ids, pts, mode="nearest")))
+    n_chunks = -(-out_f["live"] // rcfg.ray_chunk)
+    print(f"texture: grid_sample_2d, the 4 canvas reads of a chunk's "
+          f"{pts.shape[0]} survivors: {n_gs} kernels, {gs_ms:.3f} ms of "
+          f"kernel time, x {n_chunks} chunks = "
+          f"{100 * gs_ms * n_chunks / field_ms:.1f}% of the field frame's "
+          f"kernel time ({card})")
+    tr.rcfg = dataclasses.replace(rcfg, **TWO_ROUND)
+    proxy_select_cdf.launches = 0
+    launches["texture_two_round"], _, _ = import_frames(
+        tr, "field two-round (top-k)", down, proxy_select, card)
+    check(proxy_select_cdf.launches == 0, "the two-round frames launched "
+          "proxy_select_cdf")
+    tr.rcfg = rcfg
+
+    # -- one patch imported: mode 'patch' -------------------------------------
+    data = np.load(field_path, allow_pickle=True)
+    normal = data["patch_norms"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field_io.load_patch(tr, field_path, patch_id=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    occupied = int(tr.state.occ.occ.sum())
+    print(f"texture: load_patch + initialize_states (50 refreshes over "
+          f"{tr._get_near_cells().shape[0]} cells) {init_s:.2f} s; "
+          f"{occupied} cells occupied ({card})")
+    # from 1.4 along the patch normal: the sphere's decayed shell does
+    # not fill the frame
+    at_patch = [facing_pose(normal, 1.4, 0.03 * i) for i in range(4)]
+    launches["texture_patch"], out_p, patch_ms = import_frames(
+        tr, "patch (CDF)", at_patch, proxy_select_cdf, card)
+    x = torch.rand((rcfg.ray_chunk * rcfg.infer_color_cap, 3), device=dev) \
+        * 0.1 - 0.05 + torch.as_tensor(data["picked_vertices"][0],
+                                       dtype=torch.float32, device=dev)
+    n_knn, knn_ms = profile_frame(lambda: weighted_project(
+        tr.field_state.projector_imported, x, k=8, direct_above_check=True,
+        direct_above_threshold=1.0))
+    n_chunks = -(-out_p["live"] // rcfg.ray_chunk)
+    print(f"texture: weighted_project (kNN over the patch points) of a "
+          f"chunk's {x.shape[0]} survivors: {n_knn} kernels, {knn_ms:.3f} ms "
+          f"of kernel time, x {n_chunks} chunks = "
+          f"{100 * knn_ms * n_chunks / patch_ms:.1f}% of the patch frame's "
+          f"kernel time ({card})")
+    del data
+
+    # -- the narrow config on the card vs the CPU port, on the CPU's files ---
+    small, exports, cpu_occ = {}, {}, []
+    tex_small = os.path.join(TEXTURE_DIR, "texture_small.npz")
+    for name, dev_i in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        ccfg_s = CurvedFieldConfig(field=MeshFieldConfig(**SMALL_FIELD),
+                                   light_model="SH")
+        mesh_s = make_icosphere(2, radius=0.5)
+        tr_s = CurvedTrainer(type(ds)(n_frames=2, H=64, W=64),
+                             mesh_field.make_state(MeshProjector(
+                                 mesh_s, device=dev_i)), ccfg_s,
+                             RenderConfig(**SMALL_CURVED_RENDER),
+                             CurvedTrainConfig(**CURVED_TRAIN), seed=0,
+                             device=dev_i)
+        if name == "cpu":
+            seeded_curved(tr_s, TABLE_SCALE)
+            tr_s.initialize_states(1)
+            ref = tr_s.state
+        else:
+            tr_s.state.params = tree_to(ref.params, dev_i)
+            tr_s.state.ema_params = tr_s.state.params
+            tr_s.state.occ = type(ref.occ)(*(t.to(dev_i) for t in ref.occ))
+        path = os.path.join(TEXTURE_DIR, f"field_small_{name}.npz")
+        exports[name] = field_io.save_field(
+            tr_s, path, mesh=mesh_s, scfg=PatchSampleConfig(**SMALL_TEXTURE))
+        if name == "cpu":
+            quilt(path, tex_small, SMALL_TEXTURE_SIZE)
+            field_small = path
+        frames = []
+        for load in (lambda: field_io.load_field(tr_s, tex_small),
+                     lambda: field_io.load_patch(tr_s, field_small, 0)):
+            load()
+            if name == "cpu":
+                cpu_occ.append(tr_s.state.occ)
+            else:               # the CPU's grid: the frames compare alone
+                occ = cpu_occ[len(frames)]
+                tr_s.state.occ = type(occ)(*(t.to(dev_i) for t in occ))
+            pose = (orbit_pose_down(0.3) if tr_s.mode == "field" else
+                    facing_pose(exports["cpu"]["patch_norms"][0], 1.4))
+            frames.append(tr_s.render_frame(pose, use_ema=False))
+        small[name] = frames
+    a, b = exports["cuda"], exports["cpu"]
+    check(np.array_equal(a["picked_vertices"], b["picked_vertices"]),
+          "the card kept other patches than the CPU")
+    exp_err = max(float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(),
+                                                        1e-12))
+                  for k in ("patches", "patch_phi_embed"))
+    print(f"texture parity: the narrow export on the card vs the CPU: "
+          f"{len(a['patches'])} patches, the same centres, features within "
+          f"{exp_err:.3g} of their largest entry ({card})")
+    check(exp_err <= 1e-4, f"exported features differ by {exp_err}")
+    for i, name in enumerate(("field", "patch")):
+        fa, fb = small["cuda"][i], small["cpu"][i]
+        ia, ib = fa["image"].cpu().numpy(), fb["image"].cpu().numpy()
+        la = fa["weights_sum"].cpu().numpy() > 0
+        lb = fb["weights_sum"].cpu().numpy() > 0
+        p_s, e_s = psnr(ia, ib), float(np.abs(ia - ib).max())
+        mism = float(np.mean(la != lb))
+        print(f"texture parity: {name} 64x64 frame card vs CPU on the same "
+              f"file: PSNR {p_s:.2f} dB, max abs {e_s:.3g}, live mismatch "
+              f"{mism:.4f} ({int(lb.sum())} live on CPU) ({card})")
+        check(lb.any() and ib[lb].std() > 1e-3,
+              f"the small {name} frame has no structure")
+        check(p_s >= FRAME_PSNR_MIN and e_s <= FRAME_MAX_ABS
+              and mism <= FRAME_LIVE_MISMATCH,
+              f"texture {name} card vs CPU: PSNR {p_s} dB, max abs {e_s}, "
+              f"live mismatch {mism}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return launches
+
+
+def orbit_pose_down(tilt: float):
+    """An orbit pose at radius 2 on the +z axis, looking down onto the
+    z = 0 canvas, tilted by ``tilt`` in both angles."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+
+    return orbit_pose(np.pi / 2 - tilt, tilt, 2.0)
 
 
 def tree_to(tree, device):
@@ -1198,9 +1530,14 @@ def main() -> int:
     curved = curved_phase(dev, card, ds, timing)
 
     # -- 10. curved training, and the trained live, pool and baked frames --
-    trained = curved_train_phase(dev, card, ds, timing)
+    trained, tr = curved_train_phase(dev, card, ds, timing)
 
-    # -- 11. the selection kernels' device time vs their bounds -------------
+    # -- 11. the texture pipeline on the trained field -----------------------
+    texture = texture_phase(dev, card, ds, tr)
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 12. the selection kernels' device time vs their bounds -------------
     timed = timing_phase(dev, card)
 
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
@@ -1208,7 +1545,9 @@ def main() -> int:
                  "ngp_trained_render": launches["cdf"],
                  "curved_live": curved["launches"],
                  "curved_trained_live": trained["live"],
-                 "curved_baked": trained["baked"]}
+                 "curved_baked": trained["baked"],
+                 "texture_field": texture["texture_field"],
+                 "texture_patch": texture["texture_patch"]}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape
@@ -1245,7 +1584,8 @@ def main() -> int:
                         trained["max_abs_err"]), other=(4,)),
         kernel_line("proxy_select", "topk", 24, 8,
                     "nerf_texture_tpu/ops/proxy_select.py:49",
-                    {"ngp_trained_render_topk": launches["topk"]},
+                    {"ngp_trained_render_topk": launches["topk"],
+                     "texture_two_round": texture["texture_two_round"]},
                     topk_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,11 @@
-"""Host-side triangle-mesh utilities (port of the pieces of
-``nerf_texture_tpu/geometry/mesh.py`` that the curved model's projector
-needs): face and vertex normals, edge statistics, the icosphere, per-face
-TBN frames and the chart-based UV atlas.
+"""Host-side triangle-mesh utilities (port of
+``nerf_texture_tpu/geometry/mesh.py``): face and vertex normals, edge
+statistics, the icosphere, box and plane primitives, OBJ and PLY files,
+per-face TBN frames and the chart-based UV atlas.
 
-All of it is numpy preprocessing that runs once per mesh, mirrored
-statement for statement so that a mesh built here equals the JAX
-package's bit for bit.  Mesh file IO and the other primitives are not
-ported; nothing on the serving path reads them.
+All of it is numpy that runs on the host, mirrored statement for
+statement so that a mesh built (or a file written) here equals the JAX
+package's bit for bit.
 """
 
 from __future__ import annotations
@@ -64,6 +63,14 @@ class Mesh:
         e = self.vertices[self.edges_unique]
         return float(np.linalg.norm(e[:, 0] - e[:, 1], axis=-1).mean())
 
+    @property
+    def aabb(self):
+        return self.vertices.min(0), self.vertices.max(0)
+
+    def copy(self) -> "Mesh":
+        return Mesh(self.vertices.copy(), self.faces.copy(),
+                    None if self.uvs is None else self.uvs.copy())
+
 
 def make_icosphere(subdivisions: int = 2, radius: float = 1.0) -> Mesh:
     """Icosahedron subdivided ``subdivisions`` times (midpoints pushed to
@@ -102,6 +109,116 @@ def make_icosphere(subdivisions: int = 2, radius: float = 1.0) -> Mesh:
         verts = np.asarray(verts)
         faces = np.asarray(new_faces, np.int64)
     return Mesh(verts * radius, faces)
+
+
+def make_box(half_extent=(1.0, 1.0, 1.0)) -> Mesh:
+    """Axis-aligned box of 12 triangles."""
+    h = np.asarray(half_extent, np.float64)
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                        for z in (-1, 1)], np.float64) * h
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    faces = []
+    for a, b, c, d in quads:
+        faces += [[a, b, c], [a, c, d]]
+    return Mesh(corners, np.asarray(faces, np.int64))
+
+
+def make_plane(n: int = 8, size: float = 1.0) -> Mesh:
+    """Regular triangulated n x n grid on z = 0 with natural uvs."""
+    xs = np.linspace(-size, size, n)
+    xx, yy = np.meshgrid(xs, xs, indexing="ij")
+    verts = np.stack([xx.ravel(), yy.ravel(), np.zeros(n * n)], -1)
+    uvs = np.stack([(xx.ravel() + size) / (2 * size),
+                    (yy.ravel() + size) / (2 * size)], -1)
+    faces = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            a = i * n + j
+            faces += [[a, a + n, a + 1], [a + 1, a + n, a + n + 1]]
+    return Mesh(verts, np.asarray(faces, np.int64), uvs)
+
+
+def load_obj(path: str) -> Mesh:
+    """Vertices, faces (polygons split into fans) and, where every face
+    has them, per-vertex uvs of an OBJ file."""
+    verts, uvs, faces, face_uvs = [], [], [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                verts.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("vt "):
+                uvs.append([float(x) for x in line.split()[1:3]])
+            elif line.startswith("f "):
+                items = line.split()[1:]
+                vi, ti = [], []
+                for it in items:
+                    parts = it.split("/")
+                    vi.append(int(parts[0]) - 1)
+                    if len(parts) > 1 and parts[1]:
+                        ti.append(int(parts[1]) - 1)
+                for k in range(1, len(vi) - 1):
+                    faces.append([vi[0], vi[k], vi[k + 1]])
+                    if ti:
+                        face_uvs.append([ti[0], ti[k], ti[k + 1]])
+    vertices = np.asarray(verts, np.float64)
+    faces_arr = np.asarray(faces, np.int64)
+    vert_uvs = None
+    if uvs and face_uvs and len(face_uvs) == len(faces):
+        uvs_arr = np.asarray(uvs, np.float64)
+        vert_uvs = np.zeros((len(vertices), 2))
+        vert_uvs[faces_arr.ravel()] = uvs_arr[
+            np.asarray(face_uvs, np.int64).ravel()]
+    return Mesh(vertices, faces_arr, vert_uvs)
+
+
+def save_obj(path: str, mesh: Mesh):
+    with open(path, "w") as f:
+        for v in mesh.vertices:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        if mesh.uvs is not None:
+            for t in mesh.uvs:
+                f.write(f"vt {t[0]} {t[1]}\n")
+            for face in mesh.faces + 1:
+                f.write(f"f {face[0]}/{face[0]} {face[1]}/{face[1]} "
+                        f"{face[2]}/{face[2]}\n")
+        else:
+            for face in mesh.faces + 1:
+                f.write(f"f {face[0]} {face[1]} {face[2]}\n")
+
+
+def save_ply_points(path: str, points: np.ndarray,
+                    colors: np.ndarray | None = None):
+    """ASCII PLY point cloud (with optional uchar colours)."""
+    n = len(points)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {n}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write("property uchar red\nproperty uchar green\n"
+                    "property uchar blue\n")
+        f.write("end_header\n")
+        for i in range(n):
+            line = f"{points[i, 0]} {points[i, 1]} {points[i, 2]}"
+            if colors is not None:
+                c = colors[i].astype(int)
+                line += f" {c[0]} {c[1]} {c[2]}"
+            f.write(line + "\n")
+
+
+def load_ply_points(path: str) -> np.ndarray:
+    pts = []
+    with open(path) as f:
+        n = 0
+        for line in f:
+            if line.startswith("element vertex"):
+                n = int(line.split()[-1])
+            if line.strip() == "end_header":
+                break
+        for _ in range(n):
+            pts.append([float(x) for x in f.readline().split()[:3]])
+    return np.asarray(pts, np.float64)
 
 
 def calculate_tbn(mesh: Mesh, uvs: np.ndarray,

@@ -1,22 +1,32 @@
-"""MeshFeatureField: the NeRF-Texture surface field (port of the serving
-path of ``nerf_texture_tpu/models/mesh_field.py``).
+"""MeshFeatureField: the NeRF-Texture surface field (port of
+``nerf_texture_tpu/models/mesh_field.py``).
 
 A point x maps to (surface-feature embedding || height embedding, coarse
-normal, fine normal, shell mask).  The surface near x is the tangent
-plane of x's anchor frame (p0, normal n, tbn, hit; see
-``geometry.projector``): h = (x - p0) . n is the signed height, p_sur =
-x - h n the surface point, the packed hash grid encodes p_sur and the
-frequency encoding encodes h.  With the probabilistic model the table
-is dual (feature mean + log-variance per brick row) and, outside
-inference, the features get reparameterised noise; the noise is an
-argument here (the JAX function draws it from its key), so that a test
-can hand the port JAX's draw.  The regularisers (clustering, KL) read
-the table's feature lanes.
+normal, fine normal, shell mask).  The import ``mode`` picks where the
+features come from:
+
+- 'none', the trained field: the surface near x is the tangent plane of
+  x's anchor frame (p0, normal n, tbn, hit; see ``geometry.projector``),
+  h = (x - p0) . n is the signed height and p_sur = x - h n the surface
+  point; without frames, ``projector.project`` projects x exactly.  The
+  packed hash grid encodes p_sur and the frequency encoding encodes h.
+  With the probabilistic model the table is dual (feature mean +
+  log-variance per brick row) and, outside inference, the features get
+  reparameterised noise; the noise is an argument here (the JAX function
+  draws it from its key), so that a test can hand the port JAX's draw;
+- 'field', a synthesised flat canvas on the z = 0 plane: the features,
+  phi embedding and TBN frames are sampled from [H, W, C] images at
+  (x / bounds_x, y / bounds_y), the height is z;
+- 'patch', one exported patch as a point cloud: the kNN-weighted
+  projection onto its points blends their features.
+
+The fine normal is the normal net's, rotated by the local TBN and, on a
+canvas, by the inverse of the sample TBN the texel was exported with.
+The regularisers (clustering, KL) read the table's feature lanes.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the exact per-sample projection (``mode='none'`` without frames, item
-7), the import modes (item 11.2) and the vertex-feature encoder (item
-8).
+the import modes 'shape' and 'unhash' (item 11.2) and the vertex-feature
+encoder (item 8).
 """
 
 from __future__ import annotations
@@ -24,12 +34,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from ..geometry import projector as proj
 from ..geometry.projector import MeshProjector, ProjectorArrays
 from ..ops.encoding import freq_encode, freq_encode_dim
 from ..ops.hashgrid_packed import (PackedGridSpec, packed_encode_bound,
                                    packed_encode_bound_dual)
+from ..utils.grid_sample import grid_sample_2d
 from . import clustering as clus
 from . import normal_net
 
@@ -205,75 +218,126 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
           no_noise: bool = False, requires_grad_xyz: bool = False,
           return_phi_embed: bool = False, return_rot_angles: bool = False,
           need_normals: bool = True, frames=None) -> FieldOutput:
-    """Evaluate the field at x [N, 3] in [-bound, bound] through the
-    anchor frames ``frames`` (dict p0 / normal / tbn / hit at sample
-    granularity).
+    """Evaluate the field at x [N, 3] in [-bound, bound] in import mode
+    ``mode`` ('none', 'field' or 'patch').
 
-    Without ``no_noise`` and with ``prob_model`` the features get
-    ``noise * exp(clamp(log_var, -20, 2))``, where noise [N, L * C] is a
-    standard normal draw.  The hash table is read through bf16 rows
-    (``infer_table_bf16`` without noise, ``train_table_bf16`` with it);
-    a bf16 inference table (``hashgrid_packed.inference_table``) is read
-    as it is.  ``requires_grad_xyz`` only matters to the exact
-    projection: through frames, h and p_sur are closed-form in x."""
-    if mode != "none":
-        raise NotImplementedError(
-            f"mesh_field.apply: import mode {mode!r} is not ported; ROADMAP "
-            f"Queue 1, item 11.2")
+    In mode 'none', through the anchor frames ``frames`` (dict p0 /
+    normal / tbn / hit at sample granularity), or without them through
+    the exact projection (``requires_grad_xyz``: its outputs carry
+    ``diff_project``'s gradients into x; through frames, h and p_sur are
+    closed-form in x).  Without ``no_noise`` and with ``prob_model`` the
+    features get ``noise * exp(clamp(log_var, -20, 2))``, where noise
+    [N, L * C] is a standard normal draw.  The hash table is read through
+    bf16 rows (``infer_table_bf16`` without noise, ``train_table_bf16``
+    with it); a bf16 inference table (``hashgrid_packed.inference_table``)
+    is read as it is.  The import modes read ``state.imported`` and have
+    no noise; they compute the fine normal whatever ``need_normals`` says,
+    as the JAX function does."""
     if cfg.encoder_type != "hash":
         raise NotImplementedError(
             "mesh_field.apply: the vertex-feature encoder is not ported; "
             "ROADMAP Queue 1, item 8")
-    if frames is None:
+    if mode in ("shape", "unhash"):
         raise NotImplementedError(
-            "mesh_field.apply: mode 'none' without anchor frames needs the "
-            "exact per-sample projection, which is not ported; ROADMAP "
-            "Queue 1, item 7")
+            f"mesh_field.apply: import mode {mode!r} (a synthesised texture "
+            f"on another mesh) is not ported; ROADMAP Queue 1, item 11.2")
+    if rt is None:
+        rt = FieldRuntime.default()
     ncfg = cfg.normal_cfg
-    n = frames["normal"].detach()
-    p0 = frames["p0"].detach()
-    h = torch.sum((x - p0) * n, dim=-1, keepdim=True)
-    p_sur = x - h * n
-    h_mask = (torch.abs(h[..., 0]) < cfg.h_threshold) & frames["hit"]
-    local_tbn = frames["tbn"]
-    amp = cfg.infer_table_bf16 if no_noise else cfg.train_table_bf16
-    if cfg.prob_model and not no_noise:
-        if noise is None:
-            raise ValueError("mesh_field.apply: the probabilistic features "
-                             "need a noise draw (or no_noise=True)")
-        x_embed, log_var = packed_encode_bound_dual(
-            p_sur, params["encoder"], cfg.feature_spec, bound=cfg.bound,
-            amp=amp)
-        if noise.shape != log_var.shape:
-            # a draw of another size would broadcast silently
-            raise ValueError(f"mesh_field.apply: noise of shape "
-                             f"{tuple(noise.shape)} for features of shape "
-                             f"{tuple(log_var.shape)}")
-        # the exponent is clamped: an untied log-variance lane drifting
-        # high would overflow exp and NaN the frame
-        x_embed = x_embed + noise * torch.exp(torch.clamp(log_var, -20.0,
-                                                          2.0))
-    else:
-        x_embed = packed_encode_bound(p_sur, params["encoder"],
-                                      cfg.feature_spec, bound=cfg.bound,
-                                      amp=amp)
-    z_embed = freq_encode(h, cfg.z_multires)
+    imp = state.imported
     phi_embed = theta = phi_angle = normal_fine_local = None
-    if cfg.pred_normal and need_normals:
-        phi_embed = normal_net.phi_embedding(params["normal"], p_sur, ncfg,
-                                             amp=amp)
-        if return_rot_angles:
-            theta, phi_angle = normal_net.apply(
-                params["normal"], z_embed, x_embed, ncfg,
-                phi_embed=phi_embed, return_rot_angles=True)
+    local_tbn = sample_tbn_inv = None
+    if mode == "none":
+        amp = cfg.infer_table_bf16 if no_noise else cfg.train_table_bf16
+        if frames is not None:
+            n = frames["normal"].detach()
+            p0 = frames["p0"].detach()
+            sdf = torch.sum((x - p0) * n, dim=-1, keepdim=True)
+            p_sur = x - sdf * n
+            h_mask = (torch.abs(sdf[..., 0]) < cfg.h_threshold) \
+                & frames["hit"]
+            normal_coarse = n
+            local_tbn = frames["tbn"]
+        else:
+            p_sur, sdf, h_mask, normal_coarse, local_tbn = proj.project(
+                state.projector, x, k=cfg.k, h_threshold=cfg.h_threshold,
+                requires_grad_xyz=requires_grad_xyz)
+        if cfg.prob_model and not no_noise:
+            if noise is None:
+                raise ValueError("mesh_field.apply: the probabilistic "
+                                 "features need a noise draw (or "
+                                 "no_noise=True)")
+            x_embed, log_var = packed_encode_bound_dual(
+                p_sur, params["encoder"], cfg.feature_spec, bound=cfg.bound,
+                amp=amp)
+            if noise.shape != log_var.shape:
+                # a draw of another size would broadcast silently
+                raise ValueError(f"mesh_field.apply: noise of shape "
+                                 f"{tuple(noise.shape)} for features of "
+                                 f"shape {tuple(log_var.shape)}")
+            # the exponent is clamped: an untied log-variance lane drifting
+            # high would overflow exp and NaN the frame
+            x_embed = x_embed + noise * torch.exp(torch.clamp(log_var,
+                                                              -20.0, 2.0))
+        else:
+            x_embed = packed_encode_bound(p_sur, params["encoder"],
+                                          cfg.feature_spec, bound=cfg.bound,
+                                          amp=amp)
+        z_embed = freq_encode(sdf, cfg.z_multires)
+        if cfg.pred_normal and need_normals:
+            phi_embed = normal_net.phi_embedding(params["normal"], p_sur,
+                                                 ncfg, amp=amp)
+            if return_rot_angles:
+                theta, phi_angle = normal_net.apply(
+                    params["normal"], z_embed, x_embed, ncfg,
+                    phi_embed=phi_embed, return_rot_angles=True)
+    elif mode == "field":
+        p_sur = torch.stack([x[..., 0] / imp.bounds[0],
+                             x[..., 1] / imp.bounds[1]], dim=-1)
+        sdf = x[..., 2:3] - rt.sdf_offset
+        h_mask = (torch.abs(sdf[..., 0]) < cfg.h_threshold) \
+            & torch.all(torch.abs(p_sur) <= 1.0, dim=-1)
+        x_embed = grid_sample_2d(imp.features_2d, p_sur)
+        z_embed = freq_encode(sdf, cfg.z_multires)
+        normal_coarse = torch.zeros_like(x)
+        normal_coarse[..., 2] = 1.0
+        if cfg.pred_normal:
+            tid = grid_sample_2d(
+                imp.sample_tbn_ids_2d[..., None].to(torch.float32), p_sur,
+                mode="nearest")[..., 0].to(torch.int64)
+            sample_tbn_inv = imp.sample_tbn_inv[tid]
+            local_tbn = grid_sample_2d(imp.local_tbn_2d, p_sur,
+                                       mode="nearest").reshape(-1, 3, 3)
+            phi_embed = grid_sample_2d(imp.phi_embed_2d, p_sur)
+    elif mode == "patch":
+        sdf, idx, weights, normal_coarse, dis = proj.weighted_project(
+            state.projector_imported, x, k=8, direct_above_check=True,
+            direct_above_threshold=1.0)
+        x_embed = torch.sum(weights[..., None] * imp.features_v[idx], dim=-2)
+        z_embed = freq_encode(sdf, cfg.z_multires)
+        h_mask = (torch.abs(sdf[..., 0]) < cfg.h_threshold) \
+            & (torch.amin(dis, dim=-1) < cfg.h_threshold)
+        if cfg.pred_normal:
+            phi_embed = torch.sum(weights[..., None] * imp.phi_embed_v[idx],
+                                  dim=-2)
+            local_tbn = torch.sum(weights[..., None, None]
+                                  * imp.local_tbn_v[idx], dim=-3)
+    else:
+        raise ValueError(f"unknown import mode {mode}")
+    if phi_embed is not None:
         normal_fine_local = normal_net.apply(params["normal"], z_embed,
                                              x_embed, ncfg,
                                              phi_embed=phi_embed)
     embed = torch.cat([x_embed, z_embed], dim=-1)
-    normal_coarse = _normalize(n)
+    normal_coarse = _normalize(normal_coarse)
     if normal_fine_local is not None:
-        normal_fine = _normalize(torch.einsum("nba,nb->na", local_tbn,
-                                              normal_fine_local))
+        # TBN re-orientation chain: local, then the inverse sample TBN
+        normal_fine = torch.einsum("nba,nb->na", local_tbn,
+                                   normal_fine_local)
+        if sample_tbn_inv is not None:
+            normal_fine = torch.einsum("nba,nb->na", sample_tbn_inv,
+                                       normal_fine)
+        normal_fine = _normalize(normal_fine)
     else:
         normal_fine = normal_coarse
     return FieldOutput(embed=embed, normal_coarse=normal_coarse,
@@ -318,3 +382,54 @@ def kl_loss(params, cfg: MeshFieldConfig, normal: bool = False):
 def regular_loss(params, cfg: MeshFieldConfig, level: int | None = None):
     """The field's regulariser in the training loss: 1e-8 x clustering."""
     return 1e-8 * clustering_loss(params, cfg, level)
+
+
+# ---------------------------------------------------------------------------
+# import constructors (host numpy in, tensors on ``device`` out)
+# ---------------------------------------------------------------------------
+
+def import_field_data(features, sample_tbn, sample_tbn_ids, local_tbn,
+                      phi_embed, bounds, *,
+                      device: torch.device | str = "cuda") -> ImportedData:
+    """A synthesised flat canvas: features / phi_embed [H, W, C],
+    local_tbn [H, W, 9], sample_tbn [S, 9] (inverted here, in f64),
+    sample_tbn_ids [H, W], bounds [2] the canvas's world half-extents."""
+    inv = np.linalg.inv(np.asarray(sample_tbn).reshape(-1, 3, 3))
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    local_tbn = np.asarray(local_tbn)
+    return ImportedData.empty(device)._replace(
+        features_2d=f32(features), phi_embed_2d=f32(phi_embed),
+        local_tbn_2d=f32(local_tbn.reshape(*local_tbn.shape[:2], 9)),
+        sample_tbn_ids_2d=torch.as_tensor(
+            np.asarray(sample_tbn_ids, np.int64), device=device),
+        sample_tbn_inv=f32(inv), bounds=f32(bounds))
+
+
+def import_patch_data(features, local_tbn, phi_embed, *,
+                      device: torch.device | str = "cuda") -> ImportedData:
+    """One exported patch as scattered points: features [V, C], local_tbn
+    [V, 9], phi_embed [V, P]."""
+    return ImportedData.empty(device)._replace(
+        features_v=torch.as_tensor(np.asarray(features, np.float32),
+                                   device=device),
+        phi_embed_v=torch.as_tensor(np.asarray(phi_embed, np.float32),
+                                    device=device),
+        local_tbn_v=torch.as_tensor(
+            np.asarray(local_tbn, np.float32).reshape(-1, 3, 3),
+            device=device))
+
+
+def import_unhash_data(features, phi_embed=None, *,
+                       device: torch.device | str = "cuda") -> ImportedData:
+    """Per-vertex features [V, C] (and phi embeddings [V, P], zeros
+    [V, 1] without) baked onto a mesh."""
+    phi = phi_embed if phi_embed is not None else np.zeros((len(features),
+                                                            1))
+    return ImportedData.empty(device)._replace(
+        features_v=torch.as_tensor(np.asarray(features, np.float32),
+                                   device=device),
+        phi_embed_v=torch.as_tensor(np.asarray(phi, np.float32),
+                                    device=device))

@@ -12,9 +12,10 @@ occupancy march -> the compacted sample pool (or the dense [N, K] grid)
   tau carve + window refinement under the proxy density) ->
   live compaction (hit blocks first) -> ONE host sync for the live
   count -> a plain loop over chunks of live rays:
-  proxy sweep -> survivor selection (``proxy_select_cdf`` or
-  ``proxy_select``) -> field on the cap survivors -> exact composite ->
-  scatter into the packed frame buffer.
+  proxy sweep (with ``proxy_samples`` > 0 a coarse round first narrows
+  each ray's span to its weight-bearing window) -> survivor selection
+  (``proxy_select_cdf`` or ``proxy_select``) -> field on the cap
+  survivors -> exact composite -> scatter into the packed frame buffer.
 
 The JAX module's ``jit`` programs, ``lax.while_loop`` and
 ``frame_one_program`` are TPU dispatch machinery; here they are one
@@ -30,8 +31,7 @@ and colour functions the two-phase render over ``survivor_pool``.  The
 curved model's anchor frames ride along on both paths (``anchor_fn``).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the two-round proxy (``proxy_samples > 0``), deferred shading,
-and grids of more than one cascade.
+item): deferred shading, and grids of more than one cascade.
 """
 
 from __future__ import annotations
@@ -316,6 +316,22 @@ def _proxy_sigma(dens8: torch.Tensor, rays_o: torch.Tensor,
     return torch.sum(rows * w, -1).reshape(ts.shape)
 
 
+def _proxy_pass(dens8, rays_o, rays_d, t_lo, t_hi, K: int,
+                cfg: RenderConfig):
+    """K proxy samples at bin centres over [t_lo, t_hi]: (ts [N, K],
+    bin width dts [N], weights w [N, K], zero on rays without a span)."""
+    span = torch.clamp(t_hi - t_lo, min=0.0)
+    dts = span / K
+    frac = (torch.arange(K, dtype=rays_o.dtype, device=rays_o.device)
+            + 0.5) / K
+    ts = t_lo[:, None] + span[:, None] * frac
+    sdt = _proxy_sigma(dens8, rays_o, rays_d, ts, cfg.grid_size,
+                       cfg.bound) * dts[:, None]
+    trans = torch.exp(-(torch.cumsum(sdt, -1) - sdt))
+    w = torch.where(span[:, None] > 0, trans * (1.0 - torch.exp(-sdt)), 0.0)
+    return ts, dts, w
+
+
 def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
                       cfg: RenderConfig, *, bg_color=1.0, anchor_fn=None,
                       plain_select: bool = False):
@@ -324,21 +340,27 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
     survivors only -> exact composite.  Rays without a span composite to
     pure background.
 
-    Survivors are placed by inverse CDF (``infer_cdf``, kernel
-    ``proxy_select_cdf``) or taken as the top-``cap`` samples by proxy
-    weight (kernel ``proxy_select``, with the dropped samples' optical
-    depth).  ``proxy_pallas=False`` takes the top-k selection too: the
-    JAX package's XLA chain has the Pallas kernel's semantics, and there
-    is no inverse-CDF twin of it (a warning says so, as in JAX).
+    Single round (``proxy_samples == 0``): survivors are placed by
+    inverse CDF (``infer_cdf``, kernel ``proxy_select_cdf``) or taken as
+    the top-``cap`` samples by proxy weight (kernel ``proxy_select``,
+    with the dropped samples' optical depth).  ``proxy_pallas=False``
+    takes the top-k selection too: the JAX package's XLA chain has the
+    Pallas kernel's semantics, and there is no inverse-CDF twin of it (a
+    warning says so, as in JAX).
+
+    Two rounds (``proxy_samples`` = K1 > 0): round 1 sweeps K1 samples
+    over the span; its active window (weights above max(infer_w_eps,
+    1e-4)) widened by two of its steps becomes round 2's span, and rays
+    with no active sample render background.  Round 2 takes the top-k
+    selection whatever ``infer_cdf`` says (JAX's XLA chain there, which
+    ``proxy_select`` computes).
+
     ``plain_select`` runs the plain PyTorch selections in place of the
     kernels (to hold them against each other).  ``anchor_fn``: as in
     ``render_rays``, on the survivors (see ``_proxy_tail``)."""
-    if cfg.proxy_samples != 0:
-        raise NotImplementedError(
-            "render_rays_proxy: the two-round proxy (proxy_samples > 0) is "
-            "not ported; ROADMAP Queue 1, item 6")
-    cdf = cfg.infer_cdf and cfg.proxy_pallas
-    if cfg.infer_cdf and not cfg.proxy_pallas:
+    K1 = cfg.proxy_samples
+    cdf = cfg.infer_cdf and cfg.proxy_pallas and K1 == 0
+    if cfg.infer_cdf and not cfg.proxy_pallas and K1 == 0:
         warnings.warn(
             "infer_cdf=True requires proxy_pallas; falling back to the "
             "top-k survivor selection (different sampling algorithm).",
@@ -348,8 +370,26 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
             else proxy_select_cdf
     else:
         select = proxy_select_reference if plain_select else proxy_select
+    if K1 == 0:
+        t_lo, t_hi = nears, fars
+        any_act = fars > nears
+    else:
+        ts1, dts1, w1 = _proxy_pass(dens8, rays_o, rays_d, nears, fars, K1,
+                                    cfg)
+        act = w1 > max(cfg.infer_w_eps, 1e-4)
+        any_act = torch.any(act, -1)
+        first = _first_true(act)
+        last = K1 - 1 - _first_true(torch.flip(act, [-1]))
+        # a two-step margin: grazing rays' weight tails extend past the
+        # active samples
+        step1 = 2.0 * dts1
+        t_lo = torch.where(any_act, torch.gather(ts1, 1, first[:, None])[:, 0]
+                           - step1, nears)
+        t_hi = torch.where(any_act, torch.gather(ts1, 1, last[:, None])[:, 0]
+                           + step1, nears)
+        t_lo = torch.maximum(t_lo, nears)
+        t_hi = torch.minimum(t_hi, fars)
     cap, K = cfg.infer_color_cap, cfg.proxy_refined
-    t_lo, t_hi = nears, fars
     span = torch.clamp(t_hi - t_lo, min=0.0)
     dts = span / K
     frac = (torch.arange(K, dtype=rays_o.dtype, device=rays_o.device)
@@ -360,17 +400,16 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
     cap_eff = min(cap, K)
     ts2, seg2, valid2 = select(ts, sig_p, t_lo, t_hi, cap=cap_eff,
                                w_eps=float(cfg.infer_w_eps))
-    tail = dict(bg_color=bg_color, anchor_fn=anchor_fn,
-                any_act=fars > nears)
+    tail = dict(bg_color=bg_color, anchor_fn=anchor_fn, any_act=any_act)
     if cdf:
-        return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2,
-                           None, valid2, cap_eff, cfg, dt2=seg2, **tail)
-    return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2,
+        return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts,
+                           ts2, None, valid2, cap_eff, cfg, dt2=seg2, **tail)
+    return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts, ts2,
                        seg2, valid2, cap_eff, cfg, **tail)
 
 
-def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2, skip2,
-                valid2, cap_eff: int, cfg: RenderConfig, *, bg_color,
+def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts, ts2,
+                skip2, valid2, cap_eff: int, cfg: RenderConfig, *, bg_color,
                 anchor_fn=None, any_act=None, dt2=None):
     """Exact field eval + front-to-back composite over the [N, cap]
     survivor slots.  Each slot integrates over its segment dt2 (inverse-
@@ -380,10 +419,11 @@ def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2, skip2,
     integral.
 
     With ``anchor_fn`` the field gets anchor frames: per survivor
-    (``anchor_per_sample``; valid where the slot is and the ray has a
-    span, ``any_act``), or once per ray seeded at its first survivor (at
-    the middle of its first bin when the slot is empty), as training
-    seeds at the first marched sample."""
+    (``anchor_per_sample``; valid where the slot is and the ray has an
+    active span, ``any_act``), or once per ray seeded at its first
+    survivor (at the middle of the first bin of its span [t_lo, ...]
+    when the slot is empty), as training seeds at the first marched
+    sample."""
     N = rays_o.shape[0]
     x2 = torch.clamp(rays_o[:, None, :] + ts2[..., None] * rays_d[:, None, :],
                      -cfg.bound, cfg.bound)              # [N, cap, 3]
@@ -393,7 +433,7 @@ def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, dts, ts2, skip2,
                             (valid2 & any_act[:, None]).reshape(-1))
         out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3), frames2)
     elif anchor_fn is not None:
-        t_seed = torch.where(valid2[:, 0], ts2[:, 0], nears + 0.5 * dts)
+        t_seed = torch.where(valid2[:, 0], ts2[:, 0], t_lo + 0.5 * dts)
         x_seed = torch.clamp(rays_o + t_seed[:, None] * rays_d, -cfg.bound,
                              cfg.bound)
         frames = anchor_fn(rays_o, rays_d, x_seed, any_act)

@@ -18,7 +18,9 @@ One training step (``curved_train_step``):
     cells, each point anchored through the per-cell anchor table;
   render_frame(pose): the live proxy render -- block prepass, proxy
     sweep over the density grid, ``proxy_select_cdf`` placing the
-    survivors, the curved field on the survivors, exact composite;
+    survivors (with ``proxy_samples`` > 0 a coarse round narrows the
+    span first and ``proxy_select`` picks them), the curved field on the
+    survivors, exact composite;
   render_frame(pose, parity=True): the pool render -- occupancy march,
     compacted pool, sigma over the pool, ``survivor_pool``, colour on
     the survivors;
@@ -38,11 +40,17 @@ from the trainer's ``torch.Generator`` (``sample_curved_batch``,
 and ``curved_grid_step``.  The JAX package's ``curved_train_scan`` (steps
 fused into one TPU program) is a plain loop here.
 
+An imported texture (``train.field_io``: mode 'field' or 'patch')
+renders through the same calls; its grid refresh evaluates the import
+mode's field at every near cell (the anchor table is the trained field's
+alone), over the z = 0 slab of the flat canvas or the cells near the
+imported points.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
 item): the training features of item 11.4 (distillation, camera and
-gamma optimisation, error-map sampling, progressive vertex levels), the
-import modes and the flat-canvas near cells (item 11.2), and the
-deferred shading of the baked render (item 12).
+gamma optimisation, error-map sampling, progressive vertex levels),
+training in an import mode and the modes 'shape' / 'unhash' (item 11.2),
+and the deferred shading of the baked render (item 12).
 """
 
 from __future__ import annotations
@@ -301,6 +309,19 @@ def compute_near_cells(vertices: np.ndarray, grid_size: int, bound: float,
     return np.where(d < 2 * h_threshold + cell_diag)[0].astype(np.int32)
 
 
+def _curved_cell_sigma(params, field_state, rt, cell_ids, noise, *,
+                       ccfg: CurvedFieldConfig, rcfg: RenderConfig,
+                       mode: str, cas: int):
+    """Refresh densities of cells ``cell_ids`` at their jittered points
+    through the field of ``mode`` (in mode 'none' the exact projection
+    of every point)."""
+    pts = occ_mod.cell_points(cell_ids, noise, grid_size=rcfg.grid_size,
+                              cas=cas, bound=rcfg.bound)
+    sigma, _ = curved_field.density(params, field_state, pts, ccfg, rt,
+                                    mode=mode)
+    return sigma * rcfg.density_scale
+
+
 def _curved_cell_sigma_anchored(params, field_state, rt, anchor_tab,
                                 cell_ids, noise, *, ccfg: CurvedFieldConfig,
                                 rcfg: RenderConfig, mode: str, cas: int):
@@ -325,34 +346,51 @@ def curved_grid_step(state: CurvedTrainState, field_state: MeshFieldState,
     thin shell around its template); replaces ``state.occ``.
 
     draws: per cascade, the [len(near_cells), 3] jitter
-    (``occupancy.sparse_draws``).  Each point anchors through
-    ``anchor_tab`` (mode 'none', hash encoder); without the table the
-    JAX function projects every point exactly, which is not ported
-    (ROADMAP Queue 1, item 7).  Like the JAX function, the refresh decays
-    the grid at ``update_host_sparse``'s default 0.95, not at
-    ``TrainConfig.grid_decay``."""
-    if anchor_tab is None or not _use_frames(ccfg, mode):
-        raise NotImplementedError(
-            "curved_grid_step: a refresh without the anchor table needs the "
-            "exact per-sample projection, which is not ported; ROADMAP "
-            "Queue 1, item 7")
+    (``occupancy.sparse_draws``).  With ``anchor_tab`` (mode 'none', hash
+    encoder, per-ray projection) each point anchors through the table,
+    in chunks of 262,144 cells; otherwise the field of ``mode`` runs on
+    each point, in chunks of 65,536 (in mode 'none' that is the exact
+    projection).  Without ``near_cells`` they are computed around the
+    imported points ('patch') or the template.  Like the JAX function,
+    the refresh decays the grid at ``update_host_sparse``'s default 0.95,
+    not at ``TrainConfig.grid_decay``."""
     if near_cells is None:
+        arr = (field_state.projector_imported if mode == "patch"
+               else field_state.projector)
         near_cells = compute_near_cells(
-            field_state.projector.vertices.cpu().numpy(), rcfg.grid_size,
-            rcfg.bound, ccfg.field.h_threshold)
+            arr.vertices.cpu().numpy(), rcfg.grid_size, rcfg.bound,
+            ccfg.field.h_threshold)
     near_cells = torch.as_tensor(near_cells).to(
         device=state.occ.density.device, dtype=torch.int64)
-
-    def chunk_fn(ids, noise, cas):
-        return _curved_cell_sigma_anchored(
-            state.params, field_state, rt, anchor_tab, ids, noise,
-            ccfg=ccfg, rcfg=rcfg, mode=mode, cas=cas)
-
+    if anchor_tab is not None and _use_frames(ccfg, mode):
+        def chunk_fn(ids, noise, cas):
+            return _curved_cell_sigma_anchored(
+                state.params, field_state, rt, anchor_tab, ids, noise,
+                ccfg=ccfg, rcfg=rcfg, mode=mode, cas=cas)
+        chunk = 262144
+    else:
+        def chunk_fn(ids, noise, cas):
+            return _curved_cell_sigma(state.params, field_state, rt, ids,
+                                      noise, ccfg=ccfg, rcfg=rcfg,
+                                      mode=mode, cas=cas)
+        chunk = 65536
     state.occ = occ_mod.update_host_sparse(
         state.occ, chunk_fn, draws, near_cells, grid_size=rcfg.grid_size,
         cascades=rcfg.cascades, density_thresh=rcfg.density_thresh,
-        chunk=262144)
+        chunk=chunk)
     return state
+
+
+def canvas_near_cells(grid_size: int, bound: float,
+                      h_threshold: float) -> np.ndarray:
+    """Flat ids (int32) of the cells of the z = 0 slab that a flat canvas
+    ('field' mode) occupies: every (x, y), z within 2 h_threshold + two
+    cells of the plane."""
+    H = grid_size
+    z = ((np.arange(H) + 0.5) / H * 2.0 - 1.0) * bound
+    zi = np.where(np.abs(z) < 2 * h_threshold + 4 * bound / H)[0]
+    return (np.arange(H * H)[:, None] * H + zi[None, :]).ravel().astype(
+        np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +530,8 @@ class CurvedTrainer:
         self.anchor_cache = True
         self.anchor_collapse = True
         self._anchor_tab = None          # (projector, collapse, table)
-        self._near_cells = None          # (projector, mode, cell ids)
+        # ((projector, imported projector, mode), cell ids)
+        self._near_cells = None
         # (params, step, inference params), for the params and the EMA
         self._infer: list[tuple] = []
         # (params, step, grid, T, atlas, extended table)
@@ -568,21 +607,33 @@ class CurvedTrainer:
 
     def _get_near_cells(self) -> torch.Tensor:
         """The refresh's near-surface cells, computed once per template
-        mesh and mode (a cKDTree query over every cell centre)."""
-        p = self.field_state.projector
-        if (self._near_cells is None or self._near_cells[0] is not p
-                or self._near_cells[1] != self.mode):
-            if self.mode != "none":
-                raise NotImplementedError(
-                    f"CurvedTrainer: the near cells of import mode "
-                    f"{self.mode!r} are not ported; ROADMAP Queue 1, item "
-                    f"11.2")
-            ids = compute_near_cells(p.vertices.cpu().numpy(),
+        mesh, imported points and mode: the flat canvas's z = 0 slab in
+        mode 'field', the cells near the imported points in mode 'patch',
+        else near the template (a cKDTree query over every cell
+        centre)."""
+        fs = self.field_state
+        if self._near_cells is not None:
+            (p, p_imp, mode), ids = self._near_cells
+            if (p is fs.projector and p_imp is fs.projector_imported
+                    and mode == self.mode):
+                return ids
+        if self.mode in ("shape", "unhash"):
+            raise NotImplementedError(
+                f"CurvedTrainer: import mode {self.mode!r} is not ported; "
+                f"ROADMAP Queue 1, item 11.2")
+        if self.mode == "field":
+            ids = canvas_near_cells(self.rcfg.grid_size, self.rcfg.bound,
+                                    self.ccfg.field.h_threshold)
+        else:
+            arr = (fs.projector_imported if self.mode == "patch"
+                   else fs.projector)
+            ids = compute_near_cells(arr.vertices.cpu().numpy(),
                                      self.rcfg.grid_size, self.rcfg.bound,
                                      self.ccfg.field.h_threshold)
-            self._near_cells = (p, self.mode, torch.as_tensor(
-                ids, dtype=torch.int64, device=self.device))
-        return self._near_cells[2]
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+        self._near_cells = ((fs.projector, fs.projector_imported,
+                             self.mode), ids)
+        return ids
 
     def _infer_params(self, params):
         """Inference params of ``params`` (the params or their EMA), made
@@ -616,7 +667,8 @@ class CurvedTrainer:
     def initialize_states(self, n: int = 50):
         """n density-grid refreshes (after an import, or of seeded or
         converted params).  Unlike the JAX trainer, which recomputes the
-        near cells at every call, they are kept per template mesh."""
+        near cells at every call, they are kept per template mesh,
+        imported points and mode."""
         for _ in range(n):
             self._refresh()
 

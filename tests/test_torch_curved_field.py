@@ -252,13 +252,17 @@ def test_mesh_field_apply_matches(setup, noisy):
 
 
 def test_mesh_field_unported_raise(setup):
+    """The import modes onto another mesh stay unported (item 11.2); mode
+    'none' without frames and the flat imports run (their parity tests:
+    tests/test_torch_projection.py, tests/test_torch_texture.py)."""
     x = _t(setup["x"][:4])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
-                  no_noise=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
-                  mode="field", no_noise=True)
+    for mode in ("shape", "unhash"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmf.apply(setup["pt"]["field"], setup["st"], x,
+                      setup["ct"].field, mode=mode, no_noise=True)
+    out = tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
+                    no_noise=True)
+    assert out.embed.shape[0] == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmf.init(torch.Generator(), tmf.MeshFieldConfig(
             encoder_type="vertex"))
@@ -326,7 +330,7 @@ def test_curved_unported_raise(setup):
     ct = setup["ct"]
     args = (setup["pt"], setup["st"], _t(setup["x"][:4]), _t(setup["v"][:4]),
             ct)
-    for kw in (dict(mode="field"), dict(visual_mode="UV"),
+    for kw in (dict(mode="shape"), dict(visual_mode="UV"),
                dict(euler_rot=torch.eye(3)),
                dict(light_import={"env_import": torch.zeros((9, 3))})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

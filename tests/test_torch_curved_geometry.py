@@ -243,10 +243,19 @@ def test_anchor_lookup_truncates_at_the_boundary():
 
 
 def test_unported_queries_raise(projectors):
+    """The queries of the exact projection, unported until item 7, now
+    run on the projector (their parity with the JAX package:
+    tests/test_torch_projection.py); none of them raises."""
     _, pt = projectors
-    x = torch.zeros((2, 3))
-    for fn in (tproj.project, tproj.uvh, tproj.weighted_project,
-               tproj.barycentric_mapping, tproj.diff_project,
-               tspatial.raycast, tspatial.nearest_face):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(pt.arrays, x)
+    a = pt.arrays
+    x = torch.tensor([[0.0, 0.0, 0.55], [0.3, -0.4, 0.1]])
+    assert tproj.project(a, x)[0].shape == (2, 3)
+    assert tproj.uvh(a, x)[0].shape == (2, 3)
+    assert tproj.weighted_project(a, x)[0].shape == (2, 1)
+    assert tproj.barycentric_mapping(a, x, tproj.knn_normal(a, x)[0])[1] \
+        .shape == (2, 3)
+    assert tproj.diff_project(x, x, x[:, :1], x)[0] is not x
+    assert tspatial.raycast(a.tgrid, a.vertices, a.faces, x,
+                            -x)[2].shape == (2,)
+    assert tspatial.nearest_face(a.tgrid, a.vertices, a.faces,
+                                 x)[0].shape == (2,)

@@ -269,9 +269,11 @@ def test_unported_paths_raise(trainers):
     _, tt = trainers
     pose = tt.dataset.poses[0]
     _, ct, _, rt = _configs()
+    # a refresh without the anchor table runs the exact projection now;
+    # the imports onto another mesh stay unported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tct.curved_grid_step(tt.state, tt.field_state, [torch.zeros((1, 3))],
-                             ccfg=ct, rcfg=rt, near_cells=[0])
+                             ccfg=ct, rcfg=rt, near_cells=[0], mode="shape")
     rcfg = tt.rcfg
     tt.rcfg = dataclasses.replace(rcfg, deferred=True)
     try:

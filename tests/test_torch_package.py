@@ -23,6 +23,10 @@ from nerf_texture_tpu.models.ngp import NGPConfig as JaxNGPConfig
 from nerf_texture_tpu.ops.hashgrid_packed import (
     PackedGridSpec as JaxPackedGridSpec)
 from nerf_texture_tpu.render.renderer import RenderConfig as JaxRenderConfig
+from nerf_texture_tpu.synthesis.patches import (
+    PatchSampleConfig as JaxPatchSampleConfig)
+from nerf_texture_tpu.synthesis.quilting import (
+    QuiltingConfig as JaxQuiltingConfig)
 from nerf_texture_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from nerf_texture_tpu.models import curved_field as jax_curved_field
 from nerf_texture_tpu.models import mesh_field as jax_mesh_field
@@ -39,6 +43,8 @@ from nerf_texture_tpu_torch.ops.hashgrid_packed import PackedGridSpec
 from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
                                                      proxy_select_cdf)
 from nerf_texture_tpu_torch.render.renderer import RenderConfig
+from nerf_texture_tpu_torch.synthesis.patches import PatchSampleConfig
+from nerf_texture_tpu_torch.synthesis.quilting import QuiltingConfig
 from nerf_texture_tpu_torch.train.trainer import TrainConfig
 from nerf_texture_tpu_torch.utils.metrics import psnr
 from nerf_texture_tpu_torch.models import curved_field, mesh_field, normal_net
@@ -68,12 +74,14 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 26, res.stdout
+    assert int(res.stdout.split()[0]) >= 33, res.stdout
 
 
 @pytest.mark.parametrize("ours,theirs", [
     (RenderConfig, JaxRenderConfig), (NGPConfig, JaxNGPConfig),
-    (PackedGridSpec, JaxPackedGridSpec), (TrainConfig, JaxTrainConfig)])
+    (PackedGridSpec, JaxPackedGridSpec), (TrainConfig, JaxTrainConfig),
+    (PatchSampleConfig, JaxPatchSampleConfig),
+    (QuiltingConfig, JaxQuiltingConfig)])
 def test_config_fields_match_jax(ours, theirs):
     mine = [(f.name, f.default) for f in dataclasses.fields(ours)]
     ref = [(f.name, f.default) for f in dataclasses.fields(theirs)]
@@ -219,7 +227,15 @@ def test_no_device_defaults_to_the_cpu():
                   "nerf_texture_tpu_torch.geometry.projector."
                   "MeshProjector.__init__",
                   "nerf_texture_tpu_torch.convert.params_from_jax",
-                  "nerf_texture_tpu_torch.convert.occupancy_from_jax"):
+                  "nerf_texture_tpu_torch.convert.occupancy_from_jax",
+                  "nerf_texture_tpu_torch.geometry.projector."
+                  "pointcloud_arrays",
+                  "nerf_texture_tpu_torch.models.mesh_field."
+                  "import_field_data",
+                  "nerf_texture_tpu_torch.models.mesh_field."
+                  "import_patch_data",
+                  "nerf_texture_tpu_torch.models.mesh_field."
+                  "import_unhash_data"):
         assert entry in where, entry
     cpu = [(w, d) for w, d in found if d is None
            or (d is not inspect.Parameter.empty

@@ -339,3 +339,47 @@ def test_kernels_reject_misaligned_tensors(cuda_device):
     assert proxy_select_cdf.launches == before + 1
     with pytest.raises(ValueError, match="16-byte aligned"):
         proxy_select(ts_off, sig, t_lo, t_hi, cap=4, w_eps=W_EPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [200, 16384])
+def test_two_round_render_through_the_kernel_equals_plain(cuda_device,
+                                                          n_rays):
+    """The two-round proxy (proxy_samples=32, the default RenderConfig):
+    round 2 through the CUDA ``proxy_select`` equals the plain chain bit
+    for bit, and launches once."""
+    from nerf_texture_tpu_torch.render import renderer as rr
+
+    H, r0 = 32, 0.5
+    c = (torch.arange(H, dtype=torch.float32) + 0.5) / H * 2.0 - 1.0
+    r = torch.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2
+                   + c[None, None, :] ** 2)
+    dens = (60.0 * torch.exp(-((r - r0) / 0.06) ** 2)).reshape(1, -1)
+    dens8 = rr.density_corner_table(dens.to(cuda_device), H)
+    g = torch.Generator().manual_seed(n_rays)
+    d = torch.randn((n_rays, 3), generator=g) * torch.tensor(
+        [0.25, 0.25, 0.0]) + torch.tensor([0.0, 0.0, 1.0])
+    d = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).to(cuda_device)
+    o = torch.tensor([[0.05, -0.02, -2.0]], device=cuda_device).expand(
+        n_rays, 3).contiguous()
+    aabb = torch.tensor([-0.6] * 3 + [0.6] * 3, device=cuda_device)
+    from nerf_texture_tpu_torch.ops.marching import near_far_from_aabb
+    nears, fars = near_far_from_aabb(o, d, aabb, 0.2)
+    cfg = rr.RenderConfig(grid_size=H)
+    assert cfg.proxy_samples == 32 and cfg.infer_color_cap == 8
+
+    def field(x, dirs):
+        rr_ = torch.linalg.norm(x, dim=-1)
+        return (60.0 * torch.exp(-((rr_ - r0) / 0.06) ** 2),
+                (x / torch.clamp(rr_[..., None], min=1e-6) + 1.0) / 2.0)
+
+    before = proxy_select.launches
+    got = rr.render_rays_proxy(field, dens8, o, d, nears, fars, cfg)
+    torch.cuda.synchronize()
+    assert proxy_select.launches == before + 1
+    want = rr.render_rays_proxy(field, dens8, o, d, nears, fars, cfg,
+                                plain_select=True)
+    assert proxy_select.launches == before + 1
+    assert float(want["weights_sum"].max()) > 0.9
+    for k in ("image", "depth", "weights_sum", "counts"):
+        assert torch.equal(got[k], want[k]), k

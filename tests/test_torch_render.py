@@ -6,10 +6,12 @@ Tolerances, each with its reason:
   sets, 3x3 max) exactly;
 - rays, slab test, proxy density and prepass windows within 1e-5 (f32
   elementwise chains; t values are O(1));
-- render_rays_proxy on a toy field within 1e-4, with either selection:
-  the survivor t's agree within 1e-5 (test_torch_proxy_select.py) and
-  the field is smooth;
-- the whole slice (image), with either selection: PSNR >= 45 dB, max abs
+- render_rays_proxy on a toy field within 1e-4, with either selection
+  and with two rounds (``proxy_samples=32``, round 2 by top-k): the
+  survivor t's agree within 1e-5 (test_torch_proxy_select.py) and the
+  field is smooth;
+- the whole slice (image), with either selection and with two rounds:
+  PSNR >= 45 dB, max abs
   error <= 5e-2, live pixels differing <= 0.5% -- both sides round MLP
   activations and table products to bf16, a last-bit difference can
   round to the neighbouring bf16 value, and a prepass hit test on a cell
@@ -162,6 +164,20 @@ def test_render_rays_proxy_topk_matches_on_toy_field():
     assert int(_np(out_t["counts"]).max()) == 8
 
 
+def test_render_rays_proxy_two_round_matches_on_toy_field():
+    """The default RenderConfig's two rounds: 32 coarse samples narrow
+    the span, round 2 takes the top-8 of 24 (JAX's XLA chain); the
+    inverse-CDF flag does not apply, and no warning is given."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out_t, out_j = _toy_proxy_render(proxy_samples=32, infer_color_cap=8)
+    _assert_proxy_render_close(out_t, out_j)
+    assert int(_np(out_t["counts"]).max()) == 8
+    # round 1 narrowed the span: the survivors differ from one round's
+    one_t, _ = _toy_proxy_render(infer_cdf=False, infer_color_cap=8)
+    assert not torch.equal(out_t["depth"], one_t["depth"])
+
+
 def test_proxy_pallas_off_takes_topk_and_warns():
     with pytest.warns(UserWarning, match="requires proxy_pallas"):
         off_t, off_j = _toy_proxy_render(proxy_pallas=False,
@@ -296,6 +312,12 @@ def test_whole_slice_topk_matches_jax_render_image():
     _whole_slice(infer_cdf=False, infer_color_cap=8)
 
 
+def test_whole_slice_two_round_matches_jax_render_image():
+    """The slice at the default RenderConfig's selection: two rounds,
+    proxy_samples 32, top-8 of 24."""
+    _whole_slice(proxy_samples=32, infer_color_cap=8)
+
+
 def test_empty_grid_renders_background():
     occ = shell_occupancy(16, sigma=0.0, device="cpu")
     cfg = tr.RenderConfig(grid_size=16, **PROXY_KW)
@@ -314,9 +336,10 @@ def test_unported_branches_raise():
     mcfg = tngp.NGPConfig(**NGP_KW)
     params = tngp.init(torch.Generator().manual_seed(0), mcfg)
     base = tr.RenderConfig(grid_size=16, **PROXY_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(params, occ, pose, intr, 16, 16, mcfg,
-                     dataclasses.replace(base, proxy_samples=32))
+    # the two-round proxy is ported: the default RenderConfig renders
+    out = render_frame(params, occ, pose, intr, 16, 16, mcfg,
+                       dataclasses.replace(base, proxy_samples=32))
+    assert bool(torch.isfinite(out["image"]).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(params, occ, pose, intr, 16, 16, mcfg,
                      dataclasses.replace(base, deferred=True))
