@@ -13,7 +13,10 @@ model's serving path (``CurvedTrainer.initialize_states`` and
 ``render_frame``, live and ``parity=True``) over seeded weights, and its
 training path (``CurvedTrainer.train``, 700 steps), whose trained field
 is rendered live, through the pool and through the baked atlas
-(``bake_atlas``, ``render_frame(baked=True)``).
+(``bake_atlas``, ``render_frame(baked=True)``); then the texture
+pipelines on that trained field: the flat one (patch export, quilting,
+the 'field' and 'patch' imports) and the synthesis onto another mesh
+with the 'shape' and 'unhash' imports (``field_io``).
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
@@ -42,7 +45,8 @@ result line:
               the bench selection (inverse CDF, cap 4) and with top-k
               (cap 8), ms/frame of both, launches == chunks for each
               kernel, and a top-k frame re-rendered with the plain
-              selection agrees;
+              selection agrees; ``field_io.save_mesh`` of its density at
+              256^3 (main_nerf.py's export) lies on the dataset's sphere;
   9. curved:  the NeRF-Texture curved model at the width of bench.py's
               curved arm (``train.curved_trainer.CurvedTrainer`` over
               make_icosphere(4, 0.5), seeded weights): the host set-up
@@ -80,7 +84,21 @@ result line:
               card and on the CPU port imports the same texture.npz
               (the CPU's export, quilted) and one patch, and their 64x64
               frames agree;
- 12. timing:  each selection kernel's device time from torch.profiler's
+ 12. surfaces: phase 11's patches synthesised onto another mesh (a
+              rounded box, 512^2 UV map; the curved-synthesis CLI's
+              function, with an iteration cap), then on the trained
+              field ``load_field`` + ``load_shape`` (the flat texture
+              wrapped onto the box), ``load_unhash`` (the synthesised
+              texture) and ``unhash`` (the trained field baked into the
+              subdivided template's 163,842 vertices), each with 800x800
+              frames through proxy_select_cdf (launches == chunks, a
+              plain-selection frame agrees, one profiled frame and the
+              share of the uvh / barycentric queries), the unhash
+              frame's PSNR, a take_photo PNG; then the narrow config on
+              the card and on the CPU port imports one CPU-written
+              curved_mesh.npz and bakes one unhash, and their 64x64
+              frames agree;
+ 13. timing:  each selection kernel's device time from torch.profiler's
               kernel events (median of 60 launches; cold with 64 MiB
               written between launches, and warm with sig just written),
               against its bound and beside a copy_ of the same bytes,
@@ -90,7 +108,7 @@ result line:
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
 (nvcc) and no network; the kernel build goes to build/kernels/, the
-texture files to build/texture/.
+texture files to build/texture/, the surface files to build/surfaces/.
 """
 
 from __future__ import annotations
@@ -143,7 +161,7 @@ TRAIN_PSNR_MIN = 26.0
 NOVEL_PSNR_MIN = 23.0
 JAX_TRAIN_PSNR, JAX_NOVEL_PSNR = 27.07, 23.94
 
-# Kernel timing (phase 12): the selection kernels at the main path's
+# Kernel timing (phase 13): the selection kernels at the main path's
 # shapes -- the curved live chunk (CDF cap 5), the NGP renders (CDF cap 4)
 # and the NGP top-k render (cap 8) -- each over TIMED_LAUNCHES launches.
 # Bounds use the H100 SXM's published rates (NVIDIA's data sheet, 700 W):
@@ -226,10 +244,51 @@ SMALL_TEXTURE = dict(patch_size=16, max_patch_num=8, center_batch=4,
 SMALL_TEXTURE_SIZE = 64
 # the two-round proxy: RenderConfig's default proxy_samples
 TWO_ROUND = dict(proxy_samples=32)
+# phase 8's mesh export: main_nerf.py's save_mesh at resolution 256 and
+# sigma 10 of the trained NGP; the sphere of the dataset has radius 0.5.
+# The sigma-10 set holds floaters of the untrained regions too (a first
+# run: 418,530 vertices, mean |r - 0.5| 0.126), so the gate is on the
+# sphere being there: >= 90% of 2,000 points spread over it within 0.03
+# of a vertex (two cells of the 128^3 training grid: the sigma-10 level
+# may sit that far off the surface the rays saw)
+NGP_MESH_RES = 256
+NGP_MESH_PROBES, NGP_MESH_TOL, NGP_MESH_COVER = 2000, 0.03, 0.9
+# the surfaces (phase 12): the target mesh, a rounded box of 24,578
+# vertices (make_box subdivided to >= 10,000 vertices, 8 laplacian
+# steps); the curved synthesis of phase 11's patches onto its 512^2 UV
+# map, cut to fit the smoke: the grid gap 4e-3 in place of the CLI's
+# 5e-4 (a patch covers 64x the area) and at most 40 iterations (0.7-1.1
+# s each on the card's host, scripts/torch_curved_synthesis.py; 60 set
+# 60.8% of the texels), which must set at least SURFACE_MIN_DONE of
+# them; unhash at field_io's default of 100,000 vertices
+SURFACE_DIR = os.path.join("build", "surfaces")
+SURFACE_BOX, SURFACE_MIN_VERTICES, SURFACE_SMOOTH = (0.5, 0.35, 0.25), \
+    10000, 8
+SURFACE_RES = 512
+SURFACE_GAP, SURFACE_ITERS = 4e-3, 40
+SURFACE_MIN_DONE = 0.3
+UNHASH_MIN_VERTICES = 100000
+# the narrow card-vs-CPU check of phase 12: phase 11's narrow files, the
+# target subdivided to >= 600 vertices, a 64^2 UV map, unhash to >= 2000
+# vertices
+SMALL_SURFACE = dict(min_vertices=600, resolution=64, grid_gap=0.04,
+                     max_iters=60)
+SMALL_UNHASH_VERTICES = 2000
 # seeded curved params: the encoder's mean lanes are U(-1e-4, 1e-4) and
 # the phi grid U(0, 1e-3) at init; scaled by 1e4 and 1e3 the features
 # and the fine normals vary and the field has structure
 PHI_SCALE = 1e3
+
+
+def surface_target(min_vertices: int = SURFACE_MIN_VERTICES):
+    """The smoke's target mesh for the surface imports: a rounded box
+    (``make_box(SURFACE_BOX)`` subdivided to ``min_vertices``, smoothed)."""
+    from nerf_texture_tpu_torch.geometry.mesh import make_box
+    from nerf_texture_tpu_torch.geometry.shape_tools import (
+        laplacian_smooth, subdivide_to)
+
+    return laplacian_smooth(subdivide_to(make_box(SURFACE_BOX), min_vertices),
+                            SURFACE_SMOOTH)
 
 
 def check(cond: bool, msg: str):
@@ -476,7 +535,7 @@ def copy_floor_us(nbytes: int, flush, dev) -> float:
 
 
 def timing_phase(dev, card: str) -> dict:
-    """Phase 12: device time of both selection kernels at the main path's
+    """Phase 13: device time of both selection kernels at the main path's
     shapes against their bounds, and the wrappers' host time."""
     from nerf_texture_tpu_torch.ops import proxy_select as ops
 
@@ -916,7 +975,7 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = True
     return {"live": live_launches, "baked": baked_launches,
-            "max_abs_err": err}, tr
+            "max_abs_err": err, "psnr_live": psnrs["live"]}, tr
 
 
 def quilt(field_path: str, tex_path: str, size: int) -> tuple:
@@ -971,24 +1030,25 @@ def canvas_share(pose, intrinsics, H: int, W: int, bounds) -> float:
 
 
 def import_frames(tr, name, poses, kernel, card):
-    """800x800 frames of an imported texture: a warm-up, then the timed
-    poses[1:] with ``kernel``'s launches == chunks, frame checks, a frame
-    re-rendered with the plain selection held to its kernel frame, one
-    profiled frame; returns (launches, the first timed frame)."""
+    """800x800 frames of an imported texture (``name`` labels its lines):
+    a warm-up, then the timed poses[1:] with ``kernel``'s launches ==
+    chunks, frame checks, a frame re-rendered with the plain selection
+    held to its kernel frame, one profiled frame; returns (launches, the
+    first timed frame, its profiled kernel ms)."""
     H, W = tr.H, tr.W
     tr.render_frame(poses[0], use_ema=False)                  # warm-up
     walls, outs, launches, chunks = timed_frames(
         lambda p: tr.render_frame(p, use_ema=False), poses[1:], kernel)
     check(launches > 0 and launches == chunks,
-          f"texture {name}: {launches} kernel launches for {chunks} chunks")
+          f"{name}: {launches} kernel launches for {chunks} chunks")
     for o in outs:
-        frame_checks(o, H, W, f"texture {name}")
-    check_twin(f"texture {name}", outs[0]["image"].cpu().numpy(),
+        frame_checks(o, H, W, name)
+    check_twin(name, outs[0]["image"].cpu().numpy(),
                tr.render_frame(poses[1], use_ema=False, plain_select=True)[
                    "image"].cpu().numpy(), card)
     n_k, k_ms = profile_frame(lambda: tr.render_frame(poses[1],
                                                       use_ema=False))
-    print(f"texture {name} {H}x{W}: "
+    print(f"{name} {H}x{W}: "
           f"{', '.join(f'{w:.2f}' for w in walls)} ms/frame (median "
           f"{float(np.median(walls)):.2f}) over {len(walls)} poses; live rays "
           f"{[o['live'] for o in outs]}; {kernel.__name__} launches "
@@ -1002,18 +1062,12 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     ``tr`` (bench width, its RenderConfig); returns the launches of each
     import path's frames and the grid-sample / kNN shares."""
     from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
-    from nerf_texture_tpu_torch.geometry.projector import (MeshProjector,
-                                                           weighted_project)
-    from nerf_texture_tpu_torch.models import mesh_field
-    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
-    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.geometry.projector import weighted_project
     from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
                                                          proxy_select_cdf)
     from nerf_texture_tpu_torch.render.renderer import RenderConfig
     from nerf_texture_tpu_torch.synthesis.patches import PatchSampleConfig
     from nerf_texture_tpu_torch.train import field_io
-    from nerf_texture_tpu_torch.train.curved_trainer import (
-        CurvedTrainConfig, CurvedTrainer)
     from nerf_texture_tpu_torch.utils.grid_sample import grid_sample_2d
 
     torch.backends.cuda.matmul.allow_tf32 = False      # curved shading
@@ -1078,7 +1132,7 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     check(share >= 0.25, f"the canvas covers {share} of the frame")
     launches = {}
     launches["texture_field"], out_f, field_ms = import_frames(
-        tr, "field (CDF)", down, proxy_select_cdf, card)
+        tr, "texture field (CDF)", down, proxy_select_cdf, card)
     # the grid samples' share of the frame: 4 a chunk on its survivors
     pts = torch.rand((rcfg.ray_chunk * rcfg.infer_color_cap, 2),
                      device=dev) * 2 - 1
@@ -1098,7 +1152,7 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     tr.rcfg = dataclasses.replace(rcfg, **TWO_ROUND)
     proxy_select_cdf.launches = 0
     launches["texture_two_round"], _, _ = import_frames(
-        tr, "field two-round (top-k)", down, proxy_select, card)
+        tr, "texture field two-round (top-k)", down, proxy_select, card)
     check(proxy_select_cdf.launches == 0, "the two-round frames launched "
           "proxy_select_cdf")
     tr.rcfg = rcfg
@@ -1119,7 +1173,7 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     # not fill the frame
     at_patch = [facing_pose(normal, 1.4, 0.03 * i) for i in range(4)]
     launches["texture_patch"], out_p, patch_ms = import_frames(
-        tr, "patch (CDF)", at_patch, proxy_select_cdf, card)
+        tr, "texture patch (CDF)", at_patch, proxy_select_cdf, card)
     x = torch.rand((rcfg.ray_chunk * rcfg.infer_color_cap, 3), device=dev) \
         * 0.1 - 0.05 + torch.as_tensor(data["picked_vertices"][0],
                                        dtype=torch.float32, device=dev)
@@ -1138,26 +1192,12 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     small, exports, cpu_occ = {}, {}, []
     tex_small = os.path.join(TEXTURE_DIR, "texture_small.npz")
     for name, dev_i in (("cpu", torch.device("cpu")), ("cuda", dev)):
-        ccfg_s = CurvedFieldConfig(field=MeshFieldConfig(**SMALL_FIELD),
-                                   light_model="SH")
-        mesh_s = make_icosphere(2, radius=0.5)
-        tr_s = CurvedTrainer(type(ds)(n_frames=2, H=64, W=64),
-                             mesh_field.make_state(MeshProjector(
-                                 mesh_s, device=dev_i)), ccfg_s,
-                             RenderConfig(**SMALL_CURVED_RENDER),
-                             CurvedTrainConfig(**CURVED_TRAIN), seed=0,
-                             device=dev_i)
-        if name == "cpu":
-            seeded_curved(tr_s, TABLE_SCALE)
-            tr_s.initialize_states(1)
-            ref = tr_s.state
-        else:
-            tr_s.state.params = tree_to(ref.params, dev_i)
-            tr_s.state.ema_params = tr_s.state.params
-            tr_s.state.occ = type(ref.occ)(*(t.to(dev_i) for t in ref.occ))
+        tr_s = narrow_curved(ds, dev_i, ref if name == "cuda" else None)
+        ref = tr_s.state
         path = os.path.join(TEXTURE_DIR, f"field_small_{name}.npz")
         exports[name] = field_io.save_field(
-            tr_s, path, mesh=mesh_s, scfg=PatchSampleConfig(**SMALL_TEXTURE))
+            tr_s, path, mesh=make_icosphere(2, radius=0.5),
+            scfg=PatchSampleConfig(**SMALL_TEXTURE))
         if name == "cpu":
             quilt(path, tex_small, SMALL_TEXTURE_SIZE)
             field_small = path
@@ -1204,12 +1244,281 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     return launches
 
 
+def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
+    """Phase 12: phase 11's patches synthesised onto another mesh and the
+    imports onto it, on phase 10's trained field ``tr`` (bench width, its
+    RenderConfig): the curved synthesis (the CLI's function), then
+    ``load_field`` + ``load_shape``, ``load_unhash`` and ``unhash``, each
+    with 800x800 frames through proxy_select_cdf; then the narrow config
+    on the card and on the CPU port on one CPU-written curved_mesh.npz.
+    Returns the selection launches of each import's frames."""
+    import resource
+
+    import texture_synthesis_on_curved_surface_torch as syn_cli
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.geometry import projector as proj
+    from nerf_texture_tpu_torch.geometry.mesh import save_obj
+    from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train import field_io
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # curved shading
+    os.makedirs(SURFACE_DIR, exist_ok=True)
+    rcfg = RenderConfig(**CURVED_RENDER)
+    tr.rcfg = rcfg
+    fcfg = tr.ccfg.field
+    field_path = os.path.join(TEXTURE_DIR, "field.npz")
+    tex_path = os.path.join(TEXTURE_DIR, "texture.npz")
+    target_path = os.path.join(SURFACE_DIR, "target.obj")
+    curved_path = os.path.join(SURFACE_DIR, "curved_mesh.npz")
+
+    # -- the target mesh and the curved synthesis ---------------------------
+    t0 = time.perf_counter()
+    target = surface_target()
+    save_obj(target_path, target)
+    print(f"surfaces: target mesh, a rounded box {SURFACE_BOX}: "
+          f"{len(target.vertices)} vertices, {len(target.faces)} faces in "
+          f"{time.perf_counter() - t0:.2f} s")
+    st = {}
+    t0 = time.perf_counter()
+    syn_cli.synthesise(field_path, target_path, grid_gap=SURFACE_GAP,
+                       resolution=SURFACE_RES, device=dev,
+                       max_iters=SURFACE_ITERS, progress=False,
+                       out=curved_path, stats=st)
+    syn_s = time.perf_counter() - t0
+    it = max(st["iters"], 1)
+    host_s = st["loop_s"] - st["device_s"]
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"surfaces: curved synthesis (grid gap {SURFACE_GAP:g}, at most "
+          f"{SURFACE_ITERS} iterations) {syn_s:.2f} s: set-up "
+          f"{st['setup_s']:.2f} s (patch library, projector, uv2vert, range "
+          f"votes, matcher); {st['iters']} iterations in {st['loop_s']:.2f} "
+          f"s = {st['loop_s'] / it:.3f} s an iteration "
+          f"({st['device_s'] / it:.3f} s device queries: ray cast, uvh, "
+          f"canvas reads; {host_s / it:.3f} s host); UV coverage "
+          f"{100 * st['done']:.1f}% of the {st['texels']} texels on the "
+          f"surface ({100 * st['texels'] / SURFACE_RES ** 2:.1f}% of the "
+          f"{SURFACE_RES}^2 map); process peak RSS {rss:.2f} GiB ({card})")
+    feats = np.load(curved_path)["features"]
+    check(st["iters"] > 0 and st["done"] >= SURFACE_MIN_DONE
+          and bool(np.isfinite(feats).all()),
+          f"curved synthesis: {st['iters']} iterations, {st['done']} of the "
+          f"texels set")
+    del feats
+
+    # -- the imports: load_shape, load_unhash, unhash ------------------------
+    def near_surface(n: int = rcfg.ray_chunk * rcfg.infer_color_cap):
+        """n points within 0.1 of the imported mesh's vertices."""
+        pa = tr.field_state.projector_imported
+        g = torch.Generator(device=dev).manual_seed(0)
+        i = torch.randint(0, pa.vertices.shape[0], (n,), generator=g,
+                          device=dev)
+        h = torch.rand((n, 1), generator=g, device=dev) * 0.2 - 0.1
+        return pa.vertices[i] + pa.vertex_normals[i] * h
+
+    def shape_chain(x):
+        return proj.uvh(tr.field_state.projector_imported, x,
+                        k=fcfg.k_for_uv, h_threshold=fcfg.h_threshold,
+                        sdf_scale=1.0, sdf_offset=0.0)
+
+    def unhash_chain(x):
+        n, _, _, _ = proj.knn_normal(tr.field_state.projector, x, k=fcfg.k)
+        return proj.barycentric_mapping(tr.field_state.projector_imported, x,
+                                        n, h_threshold=fcfg.h_threshold)
+
+    t0 = time.perf_counter()
+    field_io.load_field(tr, tex_path)   # mode 'shape' reads its phi / TBN
+    print(f"surfaces: load_field (the phi and TBN canvases of mode 'shape') "
+          f"{time.perf_counter() - t0:.2f} s")
+    npose = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    novel = [orbit_pose(1.25 + 0.1 * i, 2 * np.pi * (i + 0.5) / 8, 2.0)
+             for i in range(4)]
+    launches = {}
+    for key, name, load, poses, chain, what in (
+            ("surface_shape", "load_shape",
+             lambda: field_io.load_shape(tr, target), novel, shape_chain,
+             "uvh"),
+            ("surface_curved_synthesis", "load_unhash",
+             lambda: field_io.load_unhash(tr, curved_path), novel,
+             shape_chain, "uvh"),
+            ("surface_unhash", "unhash",
+             lambda: field_io.unhash(tr, min_vertices=UNHASH_MIN_VERTICES),
+             [ds.poses[0], npose, ds.poses[1], ds.poses[2]], unhash_chain,
+             "knn_normal + barycentric_mapping")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mp = load()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        occupied = int(tr.state.occ.occ.sum())
+        print(f"surfaces: {name} + initialize_states (50 refreshes over "
+              f"{tr._get_near_cells().shape[0]} cells) {init_s:.2f} s; mesh "
+              f"{len(mp.mesh.vertices)} vertices "
+              f"({mp.arrays.vertices.shape[0]} after the UV atlas); mode "
+              f"{tr.mode!r}; {occupied} cells occupied ({card})")
+        check(occupied > 0, f"the {name} import is empty")
+        launches[key], out, k_ms = import_frames(
+            tr, f"surfaces {name} (CDF)", poses, proxy_select_cdf, card)
+        x = near_surface()
+        n_c, c_ms = profile_frame(lambda: chain(x))
+        n_chunks = -(-out["live"] // rcfg.ray_chunk)
+        print(f"surfaces: {name}: {what} of a chunk's {x.shape[0]} "
+              f"survivors: {n_c} kernels, {c_ms:.3f} ms of kernel time, x "
+              f"{n_chunks} chunks = {100 * c_ms * n_chunks / k_ms:.1f}% of "
+              f"the frame's kernel time ({card})")
+    check(len(mp.mesh.vertices) >= UNHASH_MIN_VERTICES,
+          f"unhash mesh of {len(mp.mesh.vertices)} vertices")
+    p_u = psnr_of(out["image"], white_gt(ds, npose))
+    print(f"surfaces: the unhash frame at the novel pose {p_u:.2f} dB, the "
+          f"trained live frame {live_psnr:.2f} dB (not gated: no JAX cell; "
+          f"the features follow the subdivided mesh's vertex order, which "
+          f"the projector's UV atlas renumbers, as in the JAX package) "
+          f"({card})")
+    photo = os.path.join(SURFACE_DIR, "unhash_novel.png")
+    img = field_io.take_photo(tr, npose, path=photo)
+    check(img.shape == (ds.H, ds.W, 3) and os.path.getsize(photo) > 0,
+          f"take_photo wrote {photo} of {img.shape}")
+    print(f"surfaces: take_photo {photo}: {os.path.getsize(photo)} bytes")
+
+    # -- the narrow config on the card vs the CPU port, on one file ----------
+    cpu = torch.device("cpu")
+    small_target = os.path.join(SURFACE_DIR, "target_small.obj")
+    curved_small = os.path.join(SURFACE_DIR, "curved_mesh_small.npz")
+    save_obj(small_target, surface_target(SMALL_SURFACE["min_vertices"]))
+    st = {}
+    t0 = time.perf_counter()
+    syn_cli.synthesise(os.path.join(TEXTURE_DIR, "field_small_cpu.npz"),
+                       small_target, grid_gap=SMALL_SURFACE["grid_gap"],
+                       resolution=SMALL_SURFACE["resolution"], device=cpu,
+                       max_iters=SMALL_SURFACE["max_iters"], progress=False,
+                       out=curved_small, stats=st)
+    print(f"surfaces parity: the CPU's narrow synthesis "
+          f"{time.perf_counter() - t0:.2f} s, {st['iters']} iterations, "
+          f"{100 * st['done']:.1f}% of {st['texels']} texels")
+    pose = orbit_pose(1.2, 0.7, 2.0)
+    small, cpu_occ = {}, []
+    for name, dev_i in (("cpu", cpu), ("cuda", dev)):
+        tr_s = narrow_curved(ds, dev_i, ref if name == "cuda" else None)
+        ref = tr_s.state
+        field_io.load_field(tr_s, os.path.join(TEXTURE_DIR,
+                                               "texture_small.npz"))
+        frames = []
+        for load in (lambda: field_io.load_unhash(tr_s, curved_small),
+                     lambda: field_io.unhash(
+                         tr_s, min_vertices=SMALL_UNHASH_VERTICES)):
+            load()
+            if name == "cpu":
+                cpu_occ.append(tr_s.state.occ)
+            else:               # the CPU's grid: the frames compare alone
+                occ = cpu_occ[len(frames)]
+                tr_s.state.occ = type(occ)(*(t.to(dev_i) for t in occ))
+            frames.append(tr_s.render_frame(pose, use_ema=False))
+        small[name] = frames
+    for i, name in enumerate(("load_unhash", "unhash")):
+        fa, fb = small["cuda"][i], small["cpu"][i]
+        ia, ib = fa["image"].cpu().numpy(), fb["image"].cpu().numpy()
+        la = fa["weights_sum"].cpu().numpy() > 0
+        lb = fb["weights_sum"].cpu().numpy() > 0
+        p_s, e_s = psnr(ia, ib), float(np.abs(ia - ib).max())
+        mism = float(np.mean(la != lb))
+        print(f"surfaces parity: {name} 64x64 frame card vs CPU on the same "
+              f"file: PSNR {p_s:.2f} dB, max abs {e_s:.3g}, live mismatch "
+              f"{mism:.4f} ({int(lb.sum())} live on CPU) ({card})")
+        check(lb.any() and ib[lb].std() > 1e-3,
+              f"the small {name} frame has no structure")
+        check(p_s >= FRAME_PSNR_MIN and e_s <= FRAME_MAX_ABS
+              and mism <= FRAME_LIVE_MISMATCH,
+              f"surfaces {name} card vs CPU: PSNR {p_s} dB, max abs {e_s}, "
+              f"live mismatch {mism}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return launches
+
+
+def narrow_curved(ds, dev_i, ref=None):
+    """The narrow curved config of the card-vs-CPU checks (SMALL_FIELD over
+    make_icosphere(2, 0.5), 64x64 frames) on ``dev_i``: seeded and
+    refreshed once, or with the params and grid of ``ref`` (a trainer
+    state of the same config)."""
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+
+    tr_s = CurvedTrainer(type(ds)(n_frames=2, H=64, W=64),
+                         mesh_field.make_state(MeshProjector(
+                             make_icosphere(2, radius=0.5), device=dev_i)),
+                         CurvedFieldConfig(field=MeshFieldConfig(
+                             **SMALL_FIELD), light_model="SH"),
+                         RenderConfig(**SMALL_CURVED_RENDER),
+                         CurvedTrainConfig(**CURVED_TRAIN), seed=0,
+                         device=dev_i)
+    if ref is None:
+        seeded_curved(tr_s, TABLE_SCALE)
+        tr_s.initialize_states(1)
+    else:
+        tr_s.state.params = tree_to(ref.params, dev_i)
+        tr_s.state.ema_params = tr_s.state.params
+        tr_s.state.occ = type(ref.occ)(*(t.to(dev_i) for t in ref.occ))
+    return tr_s
+
+
 def orbit_pose_down(tilt: float):
     """An orbit pose at radius 2 on the +z axis, looking down onto the
     z = 0 canvas, tilted by ``tilt`` in both angles."""
     from nerf_texture_tpu_torch.data.poses import orbit_pose
 
     return orbit_pose(np.pi / 2 - tilt, tilt, 2.0)
+
+
+def ngp_mesh(trainer, mcfg, dev, card: str):
+    """Phase 8's mesh export: ``field_io.save_mesh`` of the trained NGP's
+    density (the params, as main_nerf.py exports them) at resolution
+    NGP_MESH_RES and sigma 10.  The sigma-10 set also holds the floaters
+    of regions no ray trained, which the reference's template clean-up
+    removes, so the gate is that the surface holds the dataset's sphere:
+    NGP_MESH_COVER of NGP_MESH_PROBES points spread over it lie within
+    NGP_MESH_TOL of a vertex."""
+    from scipy.spatial import cKDTree
+
+    from nerf_texture_tpu_torch.geometry.mesh import Mesh
+    from nerf_texture_tpu_torch.geometry.shape_tools import (
+        keep_largest_component)
+    from nerf_texture_tpu_torch.models import ngp
+    from nerf_texture_tpu_torch.train import field_io
+
+    radius = trainer.dataset.sphere_radius
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v, f = field_io.save_mesh(
+        lambda x: ngp.density(trainer.state.params, x, mcfg)[0],
+        os.path.join(SURFACE_DIR, "ngp_mesh.obj"), resolution=NGP_MESH_RES,
+        bound=mcfg.bound, device=dev)
+    mesh_s = time.perf_counter() - t0
+    check(len(f) > 0, "the NGP mesh is empty")
+    off = np.abs(np.linalg.norm(v, axis=-1) - radius)
+    k = np.arange(NGP_MESH_PROBES) + 0.5         # a Fibonacci sphere
+    z = 1.0 - 2.0 * k / NGP_MESH_PROBES
+    a = np.pi * (1.0 + 5.0 ** 0.5) * k
+    probes = radius * np.stack([np.sqrt(1 - z * z) * np.cos(a),
+                                np.sqrt(1 - z * z) * np.sin(a), z], -1)
+    cover = float(np.mean(cKDTree(v).query(probes)[0] <= NGP_MESH_TOL))
+    big = keep_largest_component(Mesh(v, f))
+    off_big = np.abs(np.linalg.norm(big.vertices, axis=-1) - radius)
+    print(f"render: save_mesh of the trained density at {NGP_MESH_RES}^3, "
+          f"sigma 10: {len(v)} vertices, {len(f)} faces in {mesh_s:.2f} s; "
+          f"{100 * np.mean(off <= NGP_MESH_TOL):.1f}% of the vertices within "
+          f"{NGP_MESH_TOL} of the r = {radius} sphere, mean |r - {radius}| "
+          f"{off.mean():.4f}; the sphere covered at {100 * cover:.1f}% of "
+          f"{NGP_MESH_PROBES} points (gate >= {100 * NGP_MESH_COVER:.0f}%); "
+          f"largest component {len(big.vertices)} vertices, mean "
+          f"|r - {radius}| {off_big.mean():.4f} ({card})")
+    check(cover >= NGP_MESH_COVER, f"the NGP mesh covers {cover} of the "
+          f"sphere within {NGP_MESH_TOL}")
 
 
 def tree_to(tree, device):
@@ -1522,6 +1831,7 @@ def main() -> int:
           f"< {TRAIN_PSNR_MIN}")
     check(psnr_novel["cdf"] >= NOVEL_PSNR_MIN, f"novel-view PSNR "
           f"{psnr_novel['cdf']} < {NOVEL_PSNR_MIN}")
+    ngp_mesh(trainer, mcfg, dev, card)
 
     del trainer, params_t, prepass_topk, outs
     torch.cuda.empty_cache()
@@ -1534,10 +1844,13 @@ def main() -> int:
 
     # -- 11. the texture pipeline on the trained field -----------------------
     texture = texture_phase(dev, card, ds, tr)
+
+    # -- 12. synthesis onto another mesh, and its imports --------------------
+    surfaces = surfaces_phase(dev, card, ds, tr, trained["psnr_live"])
     del tr
     torch.cuda.empty_cache()
 
-    # -- 12. the selection kernels' device time vs their bounds -------------
+    # -- 13. the selection kernels' device time vs their bounds -------------
     timed = timing_phase(dev, card)
 
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
@@ -1547,7 +1860,7 @@ def main() -> int:
                  "curved_trained_live": trained["live"],
                  "curved_baked": trained["baked"],
                  "texture_field": texture["texture_field"],
-                 "texture_patch": texture["texture_patch"]}
+                 "texture_patch": texture["texture_patch"], **surfaces}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape

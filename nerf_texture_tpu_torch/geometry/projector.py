@@ -25,11 +25,13 @@ Two families of queries run over it:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from scipy.spatial import cKDTree
 
 from .mesh import Mesh, calculate_tbn, uv_atlas
 from .spatial import (GridIndex, build_grid, build_triangle_grid, knn,
@@ -107,6 +109,12 @@ class MeshProjector:
             tgrid=build_triangle_grid(mesh.vertices, mesh.faces, grid_res,
                                       tri_max_per_cell, device=self.device),
             vertex_tbn=f32(vertex_tbn))
+
+    @functools.cached_property
+    def vertex_tree(self) -> cKDTree:
+        """A cKDTree of the mesh's vertices (host, f64), built on first
+        use."""
+        return cKDTree(self.mesh.vertices)
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -233,8 +241,6 @@ def build_anchor_table(p: ProjectorArrays, grid_size: int, bound: float,
     cell holding its own anchor's p0), so the cells stacked along a
     normal column share one tangent chart; a cell stays usable only if
     both it and its surface cell pass the distance gate."""
-    from scipy.spatial import cKDTree
-
     H = grid_size
     device = p.vertices.device
     centers = ((np.stack(np.meshgrid(*([np.arange(H)] * 3),

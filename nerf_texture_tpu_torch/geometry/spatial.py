@@ -95,7 +95,8 @@ def _build_fallback(pts, lo, cell_size, res, n_fallback):
     centers = (np.stack([xx, yy, zz], -1).reshape(-1, 3) + 0.5) * cell_size \
         + lo
     k = min(n_fallback, len(pts))
-    _, idx = tree.query(centers, k=k)
+    # the far cells' queries are slow on a surface's points: every core
+    _, idx = tree.query(centers, k=k, workers=-1)
     idx = np.asarray(idx, np.int32).reshape(res ** 3, k)
     if k < n_fallback:
         idx = np.pad(idx, ((0, 0), (0, n_fallback - k)), mode="edge")
@@ -115,17 +116,24 @@ def build_triangle_grid(vertices: np.ndarray, faces: np.ndarray, res: int,
                    0, res - 1)
     tmax = np.clip(((tris.max(1) - lo) / cell_size).astype(np.int64),
                    0, res - 1)
-    cell_lists: dict[int, list[int]] = {}
-    for fi in range(len(tris)):
-        for x in range(tmin[fi, 0], tmax[fi, 0] + 1):
-            for y in range(tmin[fi, 1], tmax[fi, 1] + 1):
-                for z in range(tmin[fi, 2], tmax[fi, 2] + 1):
-                    cell_lists.setdefault((x * res + y) * res + z,
-                                          []).append(fi)
+    # every (cell, face) pair of the faces' AABB cells, then per cell the
+    # lowest face ids first (a stable sort keeps the faces' order)
+    span = tmax - tmin + 1
+    n = span.prod(1)
+    fid = np.repeat(np.arange(len(tris)), n)
+    loc = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    sy, sz = np.repeat(span[:, 1], n), np.repeat(span[:, 2], n)
+    cxyz = np.repeat(tmin, n, axis=0) + np.stack(
+        [loc // (sy * sz), (loc // sz) % sy, loc % sz], -1)
+    cell = (cxyz[:, 0] * res + cxyz[:, 1]) * res + cxyz[:, 2]
+    order = np.argsort(cell, kind="stable")
+    cell, fid = cell[order], fid[order]
+    first = np.flatnonzero(np.r_[True, cell[1:] != cell[:-1]])
+    rank = np.arange(len(cell)) - np.repeat(first, np.diff(np.r_[first,
+                                                                 len(cell)]))
+    keep = rank < max_per_cell
     cell_items = -np.ones((res ** 3, max_per_cell), np.int32)
-    for c, items in cell_lists.items():
-        m = min(len(items), max_per_cell)
-        cell_items[c, :m] = items[:m]
+    cell_items[cell[keep], rank[keep]] = fid[keep]
     fallback = _build_fallback(tris.mean(1), lo, cell_size, res, n_fallback)
     return _index(cell_items, fallback, lo, cell_size, res, device)
 

@@ -18,15 +18,24 @@ features come from:
   phi embedding and TBN frames are sampled from [H, W, C] images at
   (x / bounds_x, y / bounds_y), the height is z;
 - 'patch', one exported patch as a point cloud: the kNN-weighted
-  projection onto its points blends their features.
+  projection onto its points blends their features;
+- 'shape', a flat canvas wrapped onto another mesh (the imported
+  projector) through its UVs: ``uvh`` gives (u, v, height), the canvas
+  images are sampled at (u, v) and the height is scaled by the runtime's
+  ``sdf_scale_factor``.  The phi and TBN images are those of the last
+  'field' import (``field_io.load_field``), which this mode needs;
+- 'unhash', features baked at the vertices of the imported mesh: the
+  hit face of the projection along the base mesh's kNN normal blends its
+  vertices' features by barycentrics (vertex ids past the features are
+  clamped, as the JAX gather clamps them).
 
-The fine normal is the normal net's, rotated by the local TBN and, on a
-canvas, by the inverse of the sample TBN the texel was exported with.
-The regularisers (clustering, KL) read the table's feature lanes.
+The fine normal is the normal net's, rotated by the local TBN, on a
+canvas by the inverse of the sample TBN the texel was exported with,
+and in mode 'shape' by the target face's TBN.  The regularisers
+(clustering, KL) read the table's feature lanes.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the import modes 'shape' and 'unhash' (item 11.2) and the vertex-feature
-encoder (item 8).
+Not ported (raising ``NotImplementedError`` naming its ROADMAP item): the
+vertex-feature encoder (item 8).
 """
 
 from __future__ import annotations
@@ -219,7 +228,7 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
           return_phi_embed: bool = False, return_rot_angles: bool = False,
           need_normals: bool = True, frames=None) -> FieldOutput:
     """Evaluate the field at x [N, 3] in [-bound, bound] in import mode
-    ``mode`` ('none', 'field' or 'patch').
+    ``mode`` ('none', 'field', 'patch', 'shape' or 'unhash').
 
     In mode 'none', through the anchor frames ``frames`` (dict p0 /
     normal / tbn / hit at sample granularity), or without them through
@@ -237,16 +246,12 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
         raise NotImplementedError(
             "mesh_field.apply: the vertex-feature encoder is not ported; "
             "ROADMAP Queue 1, item 8")
-    if mode in ("shape", "unhash"):
-        raise NotImplementedError(
-            f"mesh_field.apply: import mode {mode!r} (a synthesised texture "
-            f"on another mesh) is not ported; ROADMAP Queue 1, item 11.2")
     if rt is None:
         rt = FieldRuntime.default()
     ncfg = cfg.normal_cfg
     imp = state.imported
     phi_embed = theta = phi_angle = normal_fine_local = None
-    local_tbn = sample_tbn_inv = None
+    local_tbn = sample_tbn_inv = new_tbn = None
     if mode == "none":
         amp = cfg.infer_table_bf16 if no_noise else cfg.train_table_bf16
         if frames is not None:
@@ -322,6 +327,57 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
                                   dim=-2)
             local_tbn = torch.sum(weights[..., None, None]
                                   * imp.local_tbn_v[idx], dim=-3)
+    elif mode == "shape":
+        if imp.features_2d.shape[-1] != cfg.encoder_f_out_dim or (
+                cfg.pred_normal
+                and imp.phi_embed_2d.shape[-1] != ncfg.phi_embed_dim):
+            # the JAX function fails inside the normal net with a
+            # dot_general shape error here
+            raise ValueError(
+                "mesh_field.apply: mode 'shape' reads the canvas images "
+                "(features, phi embedding, TBN) of a 'field' import; call "
+                "field_io.load_field before load_shape / load_unhash")
+        uvh_out, h_mask, normal_coarse, new_tbn = proj.uvh(
+            state.projector_imported, x, k=cfg.k_for_uv,
+            h_threshold=cfg.h_threshold, sdf_scale=1.0, sdf_offset=0.0,
+            requires_grad_xyz=requires_grad_xyz)
+        # runtime sdf scaling; a tensor divisor divides exactly on CUDA
+        scale = torch.tensor(max(rt.sdf_scale_factor / rt.uv_utilize_rate,
+                                 1e-5), dtype=x.dtype, device=x.device)
+        sdf = uvh_out[..., 2:3] / scale - rt.sdf_offset
+        p_sur = uvh_out[..., :2] * rt.uv_utilize_rate
+        x_embed = grid_sample_2d(imp.features_2d, p_sur)
+        z_embed = freq_encode(sdf, cfg.z_multires)
+        if cfg.pred_normal:
+            tid = grid_sample_2d(
+                imp.sample_tbn_ids_2d[..., None].to(torch.float32), p_sur,
+                mode="nearest")[..., 0].to(torch.int64)
+            sample_tbn_inv = imp.sample_tbn_inv[tid]
+            local_tbn = grid_sample_2d(imp.local_tbn_2d, p_sur,
+                                       mode="nearest").reshape(-1, 3, 3)
+            phi_embed = grid_sample_2d(imp.phi_embed_2d, p_sur)
+    elif mode == "unhash":
+        normal_coarse, _, _, _ = proj.knn_normal(state.projector, x,
+                                                 k=cfg.k)
+        vertex_idx, bary, sdf, h_mask, _ = proj.barycentric_mapping(
+            state.projector_imported, x, normal_coarse,
+            h_threshold=cfg.h_threshold,
+            requires_grad_xyz=requires_grad_xyz)
+        scale = torch.tensor(max(rt.sdf_scale_factor, 1e-5), dtype=x.dtype,
+                             device=x.device)
+        sdf = sdf / scale - rt.sdf_offset
+        # ids past the features are clamped, as the JAX gather clamps
+        # them: ``field_io.unhash`` bakes the features in the subdivided
+        # mesh's vertex order, but the imported projector renumbers the
+        # vertices through its UV atlas (a reference quirk, ROADMAP
+        # Queue 3)
+        vertex_idx = torch.clamp(vertex_idx, max=imp.features_v.shape[0] - 1)
+        x_embed = torch.sum(imp.features_v[vertex_idx] * bary[..., None],
+                            dim=-2)
+        z_embed = freq_encode(sdf, cfg.z_multires)
+        if cfg.pred_normal:
+            phi_embed = torch.sum(imp.phi_embed_v[vertex_idx]
+                                  * bary[..., None], dim=-2)
     else:
         raise ValueError(f"unknown import mode {mode}")
     if phi_embed is not None:
@@ -331,12 +387,12 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
     embed = torch.cat([x_embed, z_embed], dim=-1)
     normal_coarse = _normalize(normal_coarse)
     if normal_fine_local is not None:
-        # TBN re-orientation chain: local, then the inverse sample TBN
-        normal_fine = torch.einsum("nba,nb->na", local_tbn,
-                                   normal_fine_local)
-        if sample_tbn_inv is not None:
-            normal_fine = torch.einsum("nba,nb->na", sample_tbn_inv,
-                                       normal_fine)
+        # TBN re-orientation chain: local, the inverse sample TBN, the
+        # target face's TBN
+        normal_fine = normal_fine_local
+        for tbn in (local_tbn, sample_tbn_inv, new_tbn):
+            if tbn is not None:
+                normal_fine = torch.einsum("nba,nb->na", tbn, normal_fine)
         normal_fine = _normalize(normal_fine)
     else:
         normal_fine = normal_coarse

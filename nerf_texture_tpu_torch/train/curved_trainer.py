@@ -40,17 +40,18 @@ from the trainer's ``torch.Generator`` (``sample_curved_batch``,
 and ``curved_grid_step``.  The JAX package's ``curved_train_scan`` (steps
 fused into one TPU program) is a plain loop here.
 
-An imported texture (``train.field_io``: mode 'field' or 'patch')
-renders through the same calls; its grid refresh evaluates the import
-mode's field at every near cell (the anchor table is the trained field's
-alone), over the z = 0 slab of the flat canvas or the cells near the
-imported points.
+An imported texture (``train.field_io``: mode 'field', 'patch', 'shape'
+or 'unhash') renders through the same calls; its grid refresh evaluates
+the import mode's field at every near cell (the anchor table is the
+trained field's alone), over the z = 0 slab of the flat canvas or the
+cells near the imported mesh or points.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
 item): the training features of item 11.4 (distillation, camera and
 gamma optimisation, error-map sampling, progressive vertex levels),
-training in an import mode and the modes 'shape' / 'unhash' (item 11.2),
-and the deferred shading of the baked render (item 12).
+training in an import mode (item 11.2: the reference has no caller of a
+pose-free refit of an import), and the deferred shading of the baked
+render (item 12).
 """
 
 from __future__ import annotations
@@ -347,15 +348,18 @@ def curved_grid_step(state: CurvedTrainState, field_state: MeshFieldState,
 
     draws: per cascade, the [len(near_cells), 3] jitter
     (``occupancy.sparse_draws``).  With ``anchor_tab`` (mode 'none', hash
-    encoder, per-ray projection) each point anchors through the table,
-    in chunks of 262,144 cells; otherwise the field of ``mode`` runs on
-    each point, in chunks of 65,536 (in mode 'none' that is the exact
-    projection).  Without ``near_cells`` they are computed around the
-    imported points ('patch') or the template.  Like the JAX function,
-    the refresh decays the grid at ``update_host_sparse``'s default 0.95,
-    not at ``TrainConfig.grid_decay``."""
+    encoder, per-ray projection) each point anchors through the table;
+    otherwise the field of ``mode`` runs on each point (in mode 'none'
+    that is the exact projection).  Either way in chunks of 262,144
+    cells: an import's field is a chain of small ops (the ray casts of
+    ``uvh``), so larger chunks launch fewer of them.  Without
+    ``near_cells`` they are computed around the imported mesh or points
+    ('shape', 'unhash', 'patch') or the template.  Like the JAX
+    function, the refresh decays the grid at ``update_host_sparse``'s
+    default 0.95, not at ``TrainConfig.grid_decay``."""
     if near_cells is None:
-        arr = (field_state.projector_imported if mode == "patch"
+        arr = (field_state.projector_imported
+               if mode in ("shape", "unhash", "patch")
                else field_state.projector)
         near_cells = compute_near_cells(
             arr.vertices.cpu().numpy(), rcfg.grid_size, rcfg.bound,
@@ -367,17 +371,15 @@ def curved_grid_step(state: CurvedTrainState, field_state: MeshFieldState,
             return _curved_cell_sigma_anchored(
                 state.params, field_state, rt, anchor_tab, ids, noise,
                 ccfg=ccfg, rcfg=rcfg, mode=mode, cas=cas)
-        chunk = 262144
     else:
         def chunk_fn(ids, noise, cas):
             return _curved_cell_sigma(state.params, field_state, rt, ids,
                                       noise, ccfg=ccfg, rcfg=rcfg,
                                       mode=mode, cas=cas)
-        chunk = 65536
     state.occ = occ_mod.update_host_sparse(
         state.occ, chunk_fn, draws, near_cells, grid_size=rcfg.grid_size,
         cascades=rcfg.cascades, density_thresh=rcfg.density_thresh,
-        chunk=chunk)
+        chunk=262144)
     return state
 
 
@@ -607,25 +609,22 @@ class CurvedTrainer:
 
     def _get_near_cells(self) -> torch.Tensor:
         """The refresh's near-surface cells, computed once per template
-        mesh, imported points and mode: the flat canvas's z = 0 slab in
-        mode 'field', the cells near the imported points in mode 'patch',
-        else near the template (a cKDTree query over every cell
-        centre)."""
+        mesh, imported mesh or points and mode: the flat canvas's z = 0
+        slab in mode 'field', the cells near the imported mesh or points
+        in modes 'shape', 'unhash' and 'patch', else near the template (a
+        cKDTree query over every cell centre)."""
         fs = self.field_state
         if self._near_cells is not None:
             (p, p_imp, mode), ids = self._near_cells
             if (p is fs.projector and p_imp is fs.projector_imported
                     and mode == self.mode):
                 return ids
-        if self.mode in ("shape", "unhash"):
-            raise NotImplementedError(
-                f"CurvedTrainer: import mode {self.mode!r} is not ported; "
-                f"ROADMAP Queue 1, item 11.2")
         if self.mode == "field":
             ids = canvas_near_cells(self.rcfg.grid_size, self.rcfg.bound,
                                     self.ccfg.field.h_threshold)
         else:
-            arr = (fs.projector_imported if self.mode == "patch"
+            arr = (fs.projector_imported
+                   if self.mode in ("shape", "unhash", "patch")
                    else fs.projector)
             ids = compute_near_cells(arr.vertices.cpu().numpy(),
                                      self.rcfg.grid_size, self.rcfg.bound,

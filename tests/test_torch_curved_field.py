@@ -252,14 +252,16 @@ def test_mesh_field_apply_matches(setup, noisy):
 
 
 def test_mesh_field_unported_raise(setup):
-    """The import modes onto another mesh stay unported (item 11.2); mode
-    'none' without frames and the flat imports run (their parity tests:
-    tests/test_torch_projection.py, tests/test_torch_texture.py)."""
+    """The vertex-feature encoder stays unported (item 8); mode 'none'
+    without frames and the imports run (their parity tests:
+    tests/test_torch_projection.py, tests/test_torch_texture.py,
+    tests/test_torch_shape_import.py).  Mode 'shape' without a 'field'
+    import raises, naming load_field (the JAX function fails inside the
+    normal net)."""
     x = _t(setup["x"][:4])
-    for mode in ("shape", "unhash"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmf.apply(setup["pt"]["field"], setup["st"], x,
-                      setup["ct"].field, mode=mode, no_noise=True)
+    with pytest.raises(ValueError, match="load_field"):
+        tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
+                  mode="shape", no_noise=True)
     out = tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
                     no_noise=True)
     assert out.embed.shape[0] == 4
@@ -330,7 +332,9 @@ def test_curved_unported_raise(setup):
     ct = setup["ct"]
     args = (setup["pt"], setup["st"], _t(setup["x"][:4]), _t(setup["v"][:4]),
             ct)
-    for kw in (dict(mode="shape"), dict(visual_mode="UV"),
+    with pytest.raises(ValueError, match="load_field"):
+        tcf.forward(*args, mode="shape")
+    for kw in (dict(visual_mode="UV"),
                dict(euler_rot=torch.eye(3)),
                dict(light_import={"env_import": torch.zeros((9, 3))})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

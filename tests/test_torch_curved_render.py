@@ -270,8 +270,8 @@ def test_unported_paths_raise(trainers):
     pose = tt.dataset.poses[0]
     _, ct, _, rt = _configs()
     # a refresh without the anchor table runs the exact projection now;
-    # the imports onto another mesh stay unported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a 'shape' import needs the canvas images of a 'field' import
+    with pytest.raises(ValueError, match="load_field"):
         tct.curved_grid_step(tt.state, tt.field_state, [torch.zeros((1, 3))],
                              ccfg=ct, rcfg=rt, near_cells=[0], mode="shape")
     rcfg = tt.rcfg

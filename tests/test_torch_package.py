@@ -74,7 +74,33 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 33, res.stdout
+    assert int(res.stdout.split()[0]) >= 36, res.stdout
+
+
+_IMPORT_SURFACES = """
+import sys
+import nerf_texture_tpu_torch.geometry.shape_tools
+import nerf_texture_tpu_torch.synthesis.curved
+import nerf_texture_tpu_torch.ops.isosurface
+import texture_synthesis_on_curved_surface_torch as cli
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "nerf_texture_tpu" or m.startswith("nerf_texture_tpu."))
+assert not bad, bad
+print(cli.parser().parse_args(["field.npz", "mesh.obj"]).device)
+"""
+
+
+def test_surface_modules_and_cli_import_no_jax():
+    """The curved synthesis, the shape tools, the isosurface and the
+    curved-synthesis CLI import no JAX; the CLI's queries default to the
+    card."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _IMPORT_SURFACES], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "cuda", res.stdout
 
 
 @pytest.mark.parametrize("ours,theirs", [
@@ -235,7 +261,16 @@ def test_no_device_defaults_to_the_cpu():
                   "nerf_texture_tpu_torch.models.mesh_field."
                   "import_patch_data",
                   "nerf_texture_tpu_torch.models.mesh_field."
-                  "import_unhash_data"):
+                  "import_unhash_data",
+                  "nerf_texture_tpu_torch.geometry.shape_tools."
+                  "register_template",
+                  "nerf_texture_tpu_torch.synthesis.curved.resize_bilinear",
+                  "nerf_texture_tpu_torch.synthesis.curved.MatchingLib."
+                  "__init__",
+                  "nerf_texture_tpu_torch.ops.isosurface."
+                  "sample_density_grid",
+                  "nerf_texture_tpu_torch.ops.isosurface.extract_mesh",
+                  "nerf_texture_tpu_torch.train.field_io.save_mesh"):
         assert entry in where, entry
     cpu = [(w, d) for w, d in found if d is None
            or (d is not inspect.Parameter.empty

@@ -383,3 +383,63 @@ def test_two_round_render_through_the_kernel_equals_plain(cuda_device,
     assert float(want["weights_sum"].max()) > 0.9
     for k in ("image", "depth", "weights_sum", "counts"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_shape_and_unhash_frames_through_the_kernel_equal_plain(
+        cuda_device):
+    """The imports onto another mesh on the card: a flat canvas wrapped
+    onto a rounded box (``load_shape``, mode 'shape') and the trained
+    field baked into the subdivided template (``unhash``), each rendered
+    through the CUDA ``proxy_select_cdf`` (one launch a chunk), equal
+    their plain-selection frames bit for bit."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.geometry import mesh as tmesh
+    from nerf_texture_tpu_torch.geometry import shape_tools as tst
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import curved_field as tcf
+    from nerf_texture_tpu_torch.models import mesh_field as tmf
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train import curved_trainer as tct
+    from nerf_texture_tpu_torch.train import field_io as tio
+
+    fcfg = tmf.MeshFieldConfig(num_levels=3, level_dim=2, base_resolution=16,
+                               desired_resolution=32, log2_bricks=9,
+                               h_threshold=0.12, clustering=False)
+    ccfg = tcf.CurvedFieldConfig(field=fcfg, light_model="SH", hidden_dim=16,
+                                 geo_feat_dim=7)
+    rcfg = RenderConfig(bound=1.0, cascades=1, grid_size=32, ray_chunk=1024,
+                        proxy_samples=0)
+    tr = tct.CurvedTrainer(
+        SyntheticSphereDataset(n_frames=2, H=64, W=64),
+        tmf.make_state(MeshProjector(tmesh.make_icosphere(2, 0.5),
+                                     device=cuda_device)),
+        ccfg, rcfg, tct.CurvedTrainConfig(), device=cuda_device)
+    field = tr.state.params["field"]
+    with torch.no_grad():                    # features that vary
+        field["encoder"][:, :fcfg.feature_spec.row_width] *= 1e4
+        field["normal"]["phi_grid"] *= 1e3
+    rng = np.random.default_rng(0)
+    S = 16
+    tr.field_state = tr.field_state._replace(
+        imported=tmf.import_field_data(
+            features=np.cumsum(rng.normal(size=(S, S, 6)), 0) / S,
+            sample_tbn=np.eye(3).reshape(1, 9), sample_tbn_ids=np.zeros(
+                (S, S), np.int64),
+            local_tbn=np.broadcast_to(np.eye(3).reshape(9), (S, S, 9)),
+            phi_embed=rng.uniform(size=(S, S, fcfg.normal_cfg.phi_embed_dim)),
+            bounds=[0.4, 0.4], device=cuda_device))
+    pose = orbit_pose(1.1, 0.6, 2.0)
+    for load in (lambda: tio.load_shape(tr, tst.laplacian_smooth(
+            tst.subdivide_to(tmesh.make_box((0.5, 0.35, 0.25)), 300), 4)),
+                 lambda: tio.unhash(tr, min_vertices=600)):
+        load()
+        before = proxy_select_cdf.launches
+        got = tr.render_frame(pose, use_ema=False)
+        assert proxy_select_cdf.launches - before == got["chunks"] > 0
+        want = tr.render_frame(pose, use_ema=False, plain_select=True)
+        assert proxy_select_cdf.launches - before == got["chunks"]
+        assert float(want["weights_sum"].max()) > 0.5
+        for k in ("image", "depth", "weights_sum"):
+            assert torch.equal(got[k], want[k]), (tr.mode, k)
