@@ -16,7 +16,9 @@ is rendered live, through the pool and through the baked atlas
 (``bake_atlas``, ``render_frame(baked=True)``); then the texture
 pipelines on that trained field: the flat one (patch export, quilting,
 the 'field' and 'patch' imports) and the synthesis onto another mesh
-with the 'shape' and 'unhash' imports (``field_io``).
+with the 'shape' and 'unhash' imports (``field_io``); then the two
+training CLIs on a scene directory (``main_nerf_torch.py``,
+``main_torch.py``).
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
@@ -90,7 +92,7 @@ result line:
               field ``load_field`` + ``load_shape`` (the flat texture
               wrapped onto the box), ``load_unhash`` (the synthesised
               texture) and ``unhash`` (the trained field baked into the
-              subdivided template's 163,842 vertices), each with 800x800
+              subdivided template's 40,962 vertices), each with 800x800
               frames through proxy_select_cdf (launches == chunks, a
               plain-selection frame agrees, one profiled frame and the
               share of the uvh / barycentric queries), the unhash
@@ -98,7 +100,25 @@ result line:
               the card and on the CPU port imports one CPU-written
               curved_mesh.npz and bakes one unhash, and their 64x64
               frames agree;
- 13. timing:  each selection kernel's device time from torch.profiler's
+ 13. entry points: the reference's two training steps as a user runs
+              them, on a scene directory (main.py's synthetic sphere, 24
+              frames 400x400, written as PNGs to build/cli/scene):
+              ``main_nerf_torch.py --save_mesh`` (1500 steps), then
+              ``main_torch.py --distillation`` (400 steps; the
+              scene-directory preset, so camera optimisation is on) and
+              its resume to 600 steps, and ``main_torch.py`` without
+              distillation in a workspace of its own (700 steps), as
+              subprocesses (their logs in chiprun_out/cli_*.log): exit
+              codes, the PSNR and template lines, the mesh, the
+              checkpoints and their steps, finite camera deltas, their
+              eval frames through proxy_select; the distilled checkpoint
+              loaded here and its eval frame through proxy_select equal
+              bit for bit to the plain-selection frame, launches ==
+              chunks; the staged camera recovery of
+              tests/test_training_features.py at 400x400 (4 frames, 4096
+              rays); PSNR gated at 24 dB for the NGP CLI and the curved
+              CLI without distillation;
+ 14. timing:  each selection kernel's device time from torch.profiler's
               kernel events (median of 60 launches; cold with 64 MiB
               written between launches, and warm with sig just written),
               against its bound and beside a copy_ of the same bytes,
@@ -108,7 +128,9 @@ result line:
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
 (nvcc) and no network; the kernel build goes to build/kernels/, the
-texture files to build/texture/, the surface files to build/surfaces/.
+texture files to build/texture/, the surface files to build/surfaces/,
+the CLIs' scene and workspace to build/cli/.  ``--only entry_points``
+runs phases 1, 2 and 13 alone and prints no result lines.
 """
 
 from __future__ import annotations
@@ -161,7 +183,7 @@ TRAIN_PSNR_MIN = 26.0
 NOVEL_PSNR_MIN = 23.0
 JAX_TRAIN_PSNR, JAX_NOVEL_PSNR = 27.07, 23.94
 
-# Kernel timing (phase 13): the selection kernels at the main path's
+# Kernel timing (phase 14): the selection kernels at the main path's
 # shapes -- the curved live chunk (CDF cap 5), the NGP renders (CDF cap 4)
 # and the NGP top-k render (cap 8) -- each over TIMED_LAUNCHES launches.
 # Bounds use the H100 SXM's published rates (NVIDIA's data sheet, 700 W):
@@ -260,14 +282,16 @@ NGP_MESH_PROBES, NGP_MESH_TOL, NGP_MESH_COVER = 2000, 0.03, 0.9
 # 5e-4 (a patch covers 64x the area) and at most 40 iterations (0.7-1.1
 # s each on the card's host, scripts/torch_curved_synthesis.py; 60 set
 # 60.8% of the texels), which must set at least SURFACE_MIN_DONE of
-# them; unhash at field_io's default of 100,000 vertices
+# them; unhash to >= 40,000 vertices (the template's 40,962 after two
+# subdivisions), cut from field_io's default of 100,000 (163,842 made,
+# 116 s of host set-up) so that phase 13 fits the smoke
 SURFACE_DIR = os.path.join("build", "surfaces")
 SURFACE_BOX, SURFACE_MIN_VERTICES, SURFACE_SMOOTH = (0.5, 0.35, 0.25), \
     10000, 8
 SURFACE_RES = 512
 SURFACE_GAP, SURFACE_ITERS = 4e-3, 40
 SURFACE_MIN_DONE = 0.3
-UNHASH_MIN_VERTICES = 100000
+UNHASH_MIN_VERTICES = 40000
 # the narrow card-vs-CPU check of phase 12: phase 11's narrow files, the
 # target subdivided to >= 600 vertices, a 64^2 UV map, unhash to >= 2000
 # vertices
@@ -1521,6 +1545,302 @@ def ngp_mesh(trainer, mcfg, dev, card: str):
           f"sphere within {NGP_MESH_TOL}")
 
 
+# the entry points (phase 13): the reference's two-step flow on a scene
+# directory, main_nerf_torch.py --save_mesh then main_torch.py
+# --distillation and its resume, as a user runs them; the scene is
+# main.py's synthetic sphere (24 frames, 400x400) written as PNGs
+CLI_DIR = os.path.join("build", "cli")
+# (steps cut to fit the smoke's time: the distilled run 700 -> 400 and
+# its resume 1000 -> 600; the NGP runs 1500, where its eval passes the
+# gate: 23.94-24.04 dB at 1000 steps)
+CLI_NGP_ITERS, CLI_NGP_EVAL = 1500, 750
+CLI_CURVED_ITERS, CLI_CURVED_EVAL, CLI_RESUME_ITERS = 400, 200, 600
+# with --distillation three quarters of the steps are distilled and the
+# curved eval stays near an empty frame's PSNR (14.65-14.91 dB after
+# 1000 steps; the JAX package loses as much to distillation on the CPU),
+# so the 24 dB gate holds a run of main_torch.py without it
+CLI_PLAIN_ITERS, CLI_PLAIN_EVAL = 700, 700
+CLI_PSNR_MIN = 24.0
+# the staged camera recovery of tests/test_training_features.py:73-122
+# (its field, light 'None', grid 16) at 400x400, 4 frames, 4096 rays: 300
+# steps on the true poses, then 300 with frame 1's pose turned by 0.05 rad
+# and camera optimisation on (reg weight 0); the learnt rotation must undo
+# at least 30% of the turn
+RECOVERY_STEPS = (300, 300)
+RECOVERY_TURN = 0.05
+RECOVERY_MAX_RESIDUAL = 0.7
+
+
+def run_cli(args: list[str], name: str, timeout: float = 600) -> str:
+    """Run a CLI of the repo as a subprocess; its output goes to
+    chiprun_out/<name>.log as well.  Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable] + args, capture_output=True,
+                       text=True, timeout=timeout,
+                       env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    wall = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"{name}.log"), "w") as f:
+        f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    check(r.returncode == 0, f"{name}: exit {r.returncode}: "
+          f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    print(f"entry points: {name}: {' '.join(args[:1])} exit 0 in "
+          f"{wall:.1f} s")
+    return r.stdout
+
+
+def _lines(out: str, prefix: str) -> list[str]:
+    return [ln for ln in out.splitlines() if ln.startswith(prefix)]
+
+
+def _evals(out: str) -> list[tuple[int, float, float]]:
+    """(step, loss, PSNR) of each '[done/iters] loss=... PSNR=...' line."""
+    return [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+            for m in re.finditer(r"^\[(\d+)/\d+\] loss=(\S+) PSNR=(\S+)$",
+                                 out, re.M)]
+
+
+def _select_launches(out: str) -> tuple[int, int]:
+    """The CLI's eval frames' (proxy_select, proxy_select_cdf) launches."""
+    got = re.findall(r"selection launches: proxy_select (\d+), "
+                     r"proxy_select_cdf (\d+)", out)
+    return (sum(int(a) for a, _ in got), sum(int(b) for _, b in got))
+
+
+def camera_recovery(dev, card: str) -> float:
+    """The staged camera recovery; returns the residual angle / the turn."""
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer, init_curved_state)
+    from nerf_texture_tpu_torch.utils.transforms import axis_angle_to_matrix
+
+    fcfg = MeshFieldConfig(num_levels=3, level_dim=2, base_resolution=16,
+                           desired_resolution=64, log2_bricks=10,
+                           h_threshold=0.12, clustering=False,
+                           prob_model=False)
+    ccfg = CurvedFieldConfig(field=fcfg, light_model="None", hidden_dim=16,
+                             geo_feat_dim=7, dir_degree=2)
+    rcfg = RenderConfig(bound=1.0, cascades=1, grid_size=16, max_steps=48,
+                        max_samples_train=24, max_samples_infer=32,
+                        ray_chunk=1024, pool_mean_samples=16,
+                        pool_mean_samples_infer=16)
+    t1 = CurvedTrainConfig(lr=5e-3, total_steps=1600, num_rays=4096,
+                           grid_update_interval=8, grid_full_updates=2,
+                           scan_steps=1)
+    t2 = dataclasses.replace(t1, optimize_camera=True, camera_reg_weight=0.0)
+    fs = mesh_field.make_state(MeshProjector(make_icosphere(2, radius=0.5),
+                                             device=dev))
+    t0 = time.perf_counter()
+    ds = SyntheticSphereDataset(n_frames=4, H=400, W=400)
+    tr1 = CurvedTrainer(ds, fs, ccfg, rcfg, t1, device=dev)
+    tr1.train(RECOVERY_STEPS[0])
+    ds2 = SyntheticSphereDataset(n_frames=4, H=400, W=400)
+    tr2 = CurvedTrainer(ds2, fs, ccfg, rcfg, t2, device=dev)
+    params = {**tr1.state.params,
+              "camera": tr2.state.params["camera"]}
+    tr2.state = init_curved_state(tr2.generator, ccfg, rcfg, t2,
+                                  params=params, n_frames=4)
+    tr2.state.ema_params = {**tr1.state.ema_params,
+                            "camera": tr2.state.ema_params["camera"]}
+    tr2.state.occ = tr1.state.occ
+    aa = torch.tensor([0.0, RECOVERY_TURN, 0.0])
+    R_pert = axis_angle_to_matrix(aa).numpy()
+    poses = ds2.poses.copy()
+    poses[1][:3, :3] = R_pert @ poses[1][:3, :3]
+    ds2.poses = poses
+    tr2.poses = torch.as_tensor(poses, device=dev)
+    out = tr2.train(RECOVERY_STEPS[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dR = tr2.state.params["camera"]["dRs"].detach()[1].cpu()
+    resid = axis_angle_to_matrix(dR).numpy() @ R_pert
+
+    def angle(R):
+        return float(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))
+
+    before, after = angle(R_pert), angle(resid)
+    print(f"entry points: camera recovery ({RECOVERY_STEPS[0]} + "
+          f"{RECOVERY_STEPS[1]} steps, 4 frames 400x400, 4096 rays): turn "
+          f"{np.degrees(before):.4f} deg, residual {np.degrees(after):.4f} "
+          f"deg ({after / before:.3f} of it); learnt dRs[1] {dR.tolist()}; "
+          f"last loss {out['loss']:.5f}; {wall:.1f} s ({card})")
+    check(np.isfinite(after) and after < RECOVERY_MAX_RESIDUAL * before,
+          f"camera recovery: residual {after} rad of {before}")
+    return after / before
+
+
+def entry_points_phase(dev, card: str) -> dict:
+    """Phase 13: the two training CLIs on a scene directory, the resume,
+    the checkpoint rendered in this process through both selections, and
+    the staged camera recovery."""
+    import shutil
+
+    import main_torch
+    from nerf_texture_tpu_torch.config import get_preset
+    from nerf_texture_tpu_torch.data.provider import NeRFDataset
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.ops.proxy_select import proxy_select
+    from nerf_texture_tpu_torch.train import trainer as ckpt
+    from nerf_texture_tpu_torch.train.curved_trainer import CurvedTrainer
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    scene, ws = os.path.join(CLI_DIR, "scene"), os.path.join(CLI_DIR, "ws")
+    t0 = time.perf_counter()
+    SyntheticSphereDataset(n_frames=24, H=400, W=400).write_to_disk(scene)
+    print(f"entry points: scene written in {time.perf_counter() - t0:.2f} "
+          f"s (24 frames 400x400 PNG)")
+    launches = {}
+
+    # -- main_nerf_torch.py --save_mesh ---------------------------------------
+    out = run_cli(["main_nerf_torch.py", scene, "--workspace", ws,
+                   "--iters", str(CLI_NGP_ITERS), "--eval_interval",
+                   str(CLI_NGP_EVAL), "--save_mesh"], "cli_ngp")
+    for ln in (_lines(out, "setup:") + _lines(out, "[")
+               + _lines(out, "timing:") + _lines(out, "checkpoint:")
+               + _lines(out, "mesh:")):
+        print(f"  ngp cli: {ln}")
+    evals = _evals(out)
+    check([e[0] for e in evals] == list(range(
+        CLI_NGP_EVAL, CLI_NGP_ITERS + 1, CLI_NGP_EVAL)),
+          f"NGP CLI eval lines {evals}")
+    ngp_psnr = evals[-1][2]
+    check(np.isfinite(evals[-1][1]), "NGP CLI: non-finite loss")
+    check(os.path.exists(os.path.join(ws, "meshes", "ngp_mesh.obj")),
+          "NGP CLI wrote no ngp_mesh.obj")
+    raw = ckpt.read_checkpoint(os.path.join(ws, "checkpoints", "ngp"))
+    check(int(raw["step"]) == CLI_NGP_ITERS, "NGP checkpoint step")
+    launches["entry_ngp_cli_eval"] = _select_launches(out)[0]
+    check(launches["entry_ngp_cli_eval"] > 0,
+          "the NGP CLI's eval frames never launched proxy_select")
+
+    # -- main_torch.py --distillation, then its resume ------------------------
+    curved_args = ["main_torch.py", scene, "--workspace", ws,
+                   "--eval_interval", str(CLI_CURVED_EVAL), "--distillation"]
+    out = run_cli(curved_args + ["--iters", str(CLI_CURVED_ITERS)],
+                  "cli_curved")
+    for ln in (_lines(out, "template:") + _lines(out, "setup:")
+               + _lines(out, "[") + _lines(out, "timing:")
+               + _lines(out, "checkpoint:")):
+        print(f"  curved cli: {ln}")
+    check("teacher on" in out, "main_torch.py loaded no NGP teacher")
+    evals = _evals(out)
+    check([e[0] for e in evals] == list(range(
+        CLI_CURVED_EVAL, CLI_CURVED_ITERS + 1, CLI_CURVED_EVAL))
+          and all(np.isfinite(e[1]) for e in evals),
+          f"curved CLI eval lines {evals}")
+    cfg = get_preset(scene)
+    ck_dir = os.path.join(ws, "checkpoints", cfg.field_name)
+    raw = ckpt.read_checkpoint(ck_dir)
+    check(int(raw["step"]) == CLI_CURVED_ITERS, "curved checkpoint step")
+    cam = raw["params"]["camera"]
+    check(all(bool(torch.isfinite(v).all()) for v in cam.values()),
+          "non-finite camera deltas")
+    print(f"entry points: camera deltas after {CLI_CURVED_ITERS} steps: max "
+          f"|dRs| {float(cam['dRs'].abs().max()):.3g} rad, |dts| "
+          f"{float(cam['dts'].abs().max()):.3g}, |dfs| "
+          f"{float(cam['dfs'].abs().max()):.3g} px")
+    n_curved = _select_launches(out)[0]
+    out = run_cli(curved_args + ["--iters", str(CLI_RESUME_ITERS)],
+                  "cli_curved_resume")
+    for ln in (_lines(out, "checkpoint:") + _lines(out, "[")
+               + _lines(out, "timing:")):
+        print(f"  curved resume: {ln}")
+    check(f"loaded step {CLI_CURVED_ITERS}" in out,
+          "the resume did not start at the checkpoint's step")
+    evals_r = _evals(out)
+    check([e[0] for e in evals_r] == [CLI_RESUME_ITERS],
+          f"resume eval lines {evals_r}")
+    check(int(ckpt.read_checkpoint(ck_dir)["step"]) == CLI_RESUME_ITERS,
+          "the resumed checkpoint's step")
+    distilled_psnr = evals_r[-1][2]
+    launches["entry_curved_cli_eval"] = n_curved + _select_launches(out)[0]
+    check(launches["entry_curved_cli_eval"] > 0,
+          "the curved CLI's eval frames never launched proxy_select")
+
+    # -- main_torch.py without distillation, in a workspace of its own --------
+    ws_plain = os.path.join(CLI_DIR, "ws_plain")
+    shutil.copytree(os.path.join(ws, "meshes"),
+                    os.path.join(ws_plain, "meshes"))
+    out = run_cli(["main_torch.py", scene, "--workspace", ws_plain,
+                   "--eval_interval", str(CLI_PLAIN_EVAL), "--iters",
+                   str(CLI_PLAIN_ITERS)], "cli_curved_plain")
+    for ln in (_lines(out, "setup:") + _lines(out, "[")
+               + _lines(out, "timing:")):
+        print(f"  curved plain: {ln}")
+    check("teacher off" in out, "the plain run loaded a teacher")
+    evals_p = _evals(out)
+    check([e[0] for e in evals_p] == list(range(
+        CLI_PLAIN_EVAL, CLI_PLAIN_ITERS + 1, CLI_PLAIN_EVAL))
+          and all(np.isfinite(e[1]) for e in evals_p),
+          f"plain curved CLI eval lines {evals_p}")
+    curved_psnr = evals_p[-1][2]
+    launches["entry_curved_plain_cli_eval"] = _select_launches(out)[0]
+
+    # -- the checkpoint in this process, through both selections --------------
+    t0 = time.perf_counter()
+    ds = NeRFDataset(scene, split="train", scale=cfg.scale)
+    load_s = time.perf_counter() - t0
+    template = main_torch.build_template_mesh(cfg, ws)
+    tr = CurvedTrainer(ds, mesh_field.make_state(
+        MeshProjector(template, device=dev)), cfg.curved, cfg.render,
+        cfg.curved_train, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.load_checkpoint(ck_dir)
+    torch.cuda.synchronize()
+    load_ck_s = time.perf_counter() - t0
+    pose = ds.poses[0]
+    tr.render_frame(pose)                                  # warm-up
+    torch.cuda.synchronize()
+    proxy_select.launches = 0
+    t0 = time.perf_counter()
+    out_k = tr.render_frame(pose)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches["entry_checkpoint_frame"] = proxy_select.launches
+    check(proxy_select.launches > 0 and
+          proxy_select.launches == out_k["chunks"],
+          f"checkpoint frame: {proxy_select.launches} proxy_select launches "
+          f"for {out_k['chunks']} chunks")
+    out_p = tr.render_frame(pose, plain_select=True)
+    frame_checks(out_k, ds.H, ds.W, "entry points: checkpoint frame")
+    check(torch.equal(out_k["image"], out_p["image"]),
+          "checkpoint frame: the kernel frame differs from the plain one")
+    gt = ds.images[0].astype(np.float32) / 255.0
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+    frame_psnr = psnr_of(out_k["image"], gt)
+    print(f"entry points: checkpoint step {tr.state.step} loaded in "
+          f"{load_ck_s:.3f} s; scene load {load_s:.3f} s; eval frame "
+          f"{ds.H}x{ds.W} {frame_ms:.1f} ms, PSNR {frame_psnr:.2f} dB, "
+          f"{out_k['chunks']} chunks = proxy_select launches, live rays "
+          f"{out_k['live']}; kernel frame == plain-selection frame bit for "
+          f"bit ({card})")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- the staged camera recovery -------------------------------------------
+    ratio = camera_recovery(dev, card)
+
+    print(f"entry points: NGP CLI PSNR {ngp_psnr:.2f} dB after "
+          f"{CLI_NGP_ITERS} steps; curved CLI PSNR {curved_psnr:.2f} dB "
+          f"after {CLI_PLAIN_ITERS} steps (gates >= {CLI_PSNR_MIN}); with "
+          f"--distillation {distilled_psnr:.2f} dB after {CLI_RESUME_ITERS} "
+          f"(not gated); camera residual {ratio:.3f} of the turn ({card})")
+    check(ngp_psnr >= CLI_PSNR_MIN, f"NGP CLI PSNR {ngp_psnr}")
+    check(curved_psnr >= CLI_PSNR_MIN, f"curved CLI PSNR {curved_psnr}")
+    return launches
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
@@ -1566,6 +1886,8 @@ def main() -> int:
     from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
     wall0 = time.perf_counter()
 
+    only_entry = sys.argv[1:] == ["--only", "entry_points"]
+
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build = kernels.build("proxy_select")
@@ -1584,6 +1906,14 @@ def main() -> int:
               f"for 8 kernels")
         check(all(a == "0" and b == "0" for a, b in spills),
               f"a selection kernel spills registers: {spills}")
+
+    if only_entry:
+        # a shorter run while working on phase 13: the device, the build
+        # and that phase only; no result lines
+        entry_points_phase(dev, card)
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 13 "
+              f"only ({card})")
+        return 0
 
     # -- 3. kernel vs plain version on the card ------------------------------
     max_err = 0.0
@@ -1850,7 +2180,10 @@ def main() -> int:
     del tr
     torch.cuda.empty_cache()
 
-    # -- 13. the selection kernels' device time vs their bounds -------------
+    # -- 13. the training entry points on a scene directory ------------------
+    entry = entry_points_phase(dev, card)
+
+    # -- 14. the selection kernels' device time vs their bounds -------------
     timed = timing_phase(dev, card)
 
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
@@ -1898,7 +2231,8 @@ def main() -> int:
         kernel_line("proxy_select", "topk", 24, 8,
                     "nerf_texture_tpu/ops/proxy_select.py:49",
                     {"ngp_trained_render_topk": launches["topk"],
-                     "texture_two_round": texture["texture_two_round"]},
+                     "texture_two_round": texture["texture_two_round"],
+                     **entry},
                     topk_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,7 +14,11 @@ selection kernels of ``csrc/proxy_select.cu`` (``proxy_select_cdf`` or
 ``proxy_select``) -- and the serving path of the curved NeRF-Texture
 model: ``train.curved_trainer.CurvedTrainer`` refreshes its density grid
 through the per-cell anchor table and renders views through the proxy
-path (``proxy_select_cdf``) or the pool path (``parity=True``).
+path (``proxy_select_cdf``) or the pool path (``parity=True``).  Its
+training (camera, gamma and error-map training, distillation), the
+texture pipelines, checkpoints, captured ``transforms.json`` scenes and
+the two training CLIs beside the package (``main_nerf_torch.py``,
+``main_torch.py``) are ported too.
 
 - ``geometry`` -- host mesh utilities (icosphere, UV atlas, TBN), the
                   grid index and kNN, the mesh projector's anchor frames
@@ -30,12 +34,16 @@ path (``proxy_select_cdf``) or the pool path (``parity=True``).
 - ``render``   -- render_rays (training and the pool path, two-phase over
                   ``compact.survivor_pool``) and the frame renderer
                   (prepass, proxy or pool chunks)
-- ``data``     -- ray generation and sampling, orbit poses, the
-                  synthetic-sphere dataset and fixtures
+- ``data``     -- ray generation and sampling (uniform or by error map),
+                  poses, the synthetic-sphere dataset and fixtures, the
+                  ``transforms.json`` loader, PNG files and PIL's Lanczos
+                  without an image library
 - ``train``    -- TrainConfig, Trainer, train_step, grid_step,
-                  render_frame; CurvedTrainConfig, CurvedTrainer,
-                  curved_grid_step
-- ``utils``    -- MLP, PSNR
+                  render_frame, checkpoints; CurvedTrainConfig,
+                  CurvedTrainer, curved_grid_step, distill_step,
+                  load_ngp_teacher; field_io (the texture round trip)
+- ``utils``    -- MLP, PSNR, rotations, the metrics log
+- ``config``   -- SceneConfig and the scene presets
 - ``convert``  -- JAX param / occupancy pytrees (as numpy) -> torch
 - ``kernels``  -- nvcc build + ctypes load of ``csrc/*.cu``
 """

@@ -4,7 +4,9 @@ without a trained state.
 ``sphere_texture``, ``render_gt_sphere`` and ``SyntheticSphereDataset``
 mirror ``nerf_texture_tpu/data/synthetic.py`` in host numpy, so that the
 port needs nothing of the JAX package at run time (a test holds images,
-poses and intrinsics equal).  ``sphere_intrinsics`` is the dataset's
+poses and intrinsics equal); ``write_to_disk`` writes the scene as a
+``transforms.json`` directory that ``data.provider.NeRFDataset`` (and the
+JAX package's loader) reads.  ``sphere_intrinsics`` is the dataset's
 camera; ``shell_occupancy`` is a density grid with a shell of high
 density around the sphere's surface, what a trained grid of that scene
 converges to, so the renderer's prepass and proxy sweep see real work.
@@ -12,10 +14,14 @@ converges to, so the renderer's prepass and proxy sweep see real work.
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
 
 from ..ops.occupancy import OccupancyGrid
+from .images import write_png
 from .poses import orbit_pose
 
 
@@ -93,6 +99,36 @@ class SyntheticSphereDataset:
     @property
     def num_frames(self) -> int:
         return self.poses.shape[0]
+
+    def write_to_disk(self, path: str):
+        """Write the scene as a colmap-mode ``transforms.json`` directory,
+        the images as 8-bit RGBA PNGs under ``images/``.  The poses are
+        written in the NeRF/Blender convention at scale 1, so that
+        ``nerf_matrix_to_ngp`` with ``scale=1`` gives them back."""
+        os.makedirs(os.path.join(path, "images"), exist_ok=True)
+        frames = []
+        for k in range(self.num_frames):
+            ngp = self.poses[k]
+            # invert nerf_matrix_to_ngp (scale=1): rows (1,2,0) with sign
+            # flips on the last two columns
+            nerf = np.eye(4, dtype=np.float32)
+            nerf[0] = [ngp[2, 0], -ngp[2, 1], -ngp[2, 2], ngp[2, 3]]
+            nerf[1] = [ngp[0, 0], -ngp[0, 1], -ngp[0, 2], ngp[0, 3]]
+            nerf[2] = [ngp[1, 0], -ngp[1, 1], -ngp[1, 2], ngp[1, 3]]
+            name = f"images/frame_{k:04d}.png"
+            write_png(os.path.join(path, name), self.images[k])
+            frames.append({"file_path": name,
+                           "transform_matrix": nerf.tolist()})
+        meta = {
+            "fl_x": float(self.intrinsics[0]),
+            "fl_y": float(self.intrinsics[1]),
+            "cx": float(self.intrinsics[2]),
+            "cy": float(self.intrinsics[3]),
+            "h": self.H, "w": self.W,
+            "frames": frames,
+        }
+        with open(os.path.join(path, "transforms.json"), "w") as f:
+            json.dump(meta, f)
 
 
 def sphere_intrinsics(H: int, W: int, focal: float | None = None

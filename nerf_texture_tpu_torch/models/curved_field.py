@@ -5,16 +5,18 @@ MeshFeatureField -> sigma MLP (embed -> hidden -> 1 + geo_feat_dim) ->
 the SH light model (or, with ``light_model='None'``, a colour MLP over
 the SH-encoded reflection direction).  ``forward`` shades every sample in
 one pass, at inference or in training (noisy features and the
--grad(sigma) normal target); ``sigma_with_aux`` and ``color_from_aux``
-are the two phases of the pool render: sigma over the whole pool, colour
-only on the survivors, reusing the sigma pass's embedding;
+-grad(sigma) normal target); ``regular_loss`` sums the training
+regularisers, the camera term among them; ``sigma_with_aux`` and
+``color_from_aux`` are the two phases of the pool render: sigma over the
+whole pool, colour only on the survivors, reusing the sigma pass's
+embedding;
 ``forward_baked`` reads the embeddings from a baked atlas.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
 the SG and Envmap light models and imported environments (item 11.1),
 the visual modes other than RGB and the light rotation of the viewer
-(item 11.7), the camera regulariser (item 11.4), and the deferred
-shading of the baked atlas (``forward_baked_s1`` / ``_s2``, item 12).
+(item 11.7), and the deferred shading of the baked atlas
+(``forward_baked_s1`` / ``_s2``, item 12).
 """
 
 from __future__ import annotations
@@ -249,10 +251,11 @@ def _sigma_grad_normal(params, state: MeshFieldState, x: torch.Tensor,
     The target only ever enters the loss detached (it is the cosine
     loss's target, and the shell mask reads whether it is finite), so
     its own derivative in the params is never needed: one first-order
-    ``autograd.grad`` at x.detach(), keeping the graph that the training
-    loss then backpropagates through sigma."""
+    ``autograd.grad`` at x, keeping the graph that the training loss
+    then backpropagates through sigma -- and through x where x carries
+    a gradient (the rays of trainable camera deltas)."""
     with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
+        xg = x if x.requires_grad else x.detach().requires_grad_(True)
         fout = mesh_field.apply(params["field"], state, xg, cfg.field, rt,
                                 mode=mode, noise=noise, no_noise=False,
                                 requires_grad_xyz=True, frames=frames)
@@ -373,17 +376,19 @@ def regular_loss(params, cfg: CurvedFieldConfig, step=None, *,
                  optimize_camera_loss=None, level: int | None = None,
                  camera_reg_weight=None):
     """The training regularisers: the field's (1e-8 x clustering at
-    ``level``) and, with the Lipschitz normal net under a light model,
-    1e-4 x its Lipschitz bound."""
-    if optimize_camera_loss is not None:
-        raise NotImplementedError(
-            "curved_field.regular_loss: the camera regulariser belongs to "
-            "camera optimisation, which is not ported; ROADMAP Queue 1, "
-            "item 11.4")
+    ``level``), with the Lipschitz normal net under a light model 1e-4 x
+    its Lipschitz bound, and the trainer's camera regulariser
+    ``optimize_camera_loss`` x 1e4 up to step 2000 and 1e2 after it (the
+    reference's schedule), or x ``camera_reg_weight`` where that is
+    set."""
     loss = mesh_field.regular_loss(params["field"], cfg.field, level=level)
     if cfg.field.lip and cfg.render_light_model and cfg.field.pred_normal:
         loss = loss + 1e-4 * normal_net.regularization(
             params["field"]["normal"])
+    if optimize_camera_loss is not None:
+        weight = (camera_reg_weight if camera_reg_weight is not None
+                  else (1e2 if step > 2000 else 1e4))
+        loss = loss + weight * optimize_camera_loss
     return loss
 
 

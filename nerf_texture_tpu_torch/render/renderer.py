@@ -92,6 +92,14 @@ class RenderConfig:
     infer_cdf: bool = True
     proxy_bf16: bool = False
 
+    @staticmethod
+    def for_bound(bound: float, **kw) -> "RenderConfig":
+        """The config of a scene of this bound: 1 + ceil(log2(bound))
+        cascades (bound > 1 needs cascades, which the march does not port
+        yet), the other fields as given or their defaults."""
+        cascades = 1 + math.ceil(math.log2(max(bound, 1.0)))
+        return RenderConfig(bound=bound, cascades=cascades, **kw)
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

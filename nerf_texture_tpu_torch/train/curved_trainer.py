@@ -3,12 +3,19 @@
 
 One training step (``curved_train_step``):
 
-  frame + pixel draws -> ray gen -> occupancy march (jittered) ->
-  compacted sample pool -> per-sample anchor frames from the anchor
-  table -> curved field with noisy features and the -grad(sigma) normal
-  target -> composite (normals on detached weights) -> MSE on a random
-  per-pixel background + the composited-normal cosine loss + the
-  regularisers -> backward -> Adam (+ LambdaLR decay) -> EMA
+  frame + pixel draws (uniform, or from the frame's error map) -> ray
+  gen (from the pose and intrinsics moved by the frame's trainable
+  camera deltas) -> occupancy march (jittered) -> compacted sample pool
+  -> per-sample anchor frames from the anchor table -> curved field with
+  noisy features, the -grad(sigma) normal target and the frame's
+  trainable gamma -> composite (normals on detached weights) -> MSE on a
+  random per-pixel background + the composited-normal cosine loss + the
+  regularisers (the camera's among them) + the gamma prior -> backward
+  -> Adam (+ LambdaLR decay) -> EMA -> the error map's sampled cells
+
+and with distillation, at ``distillation_prob``, a ``distill_step``: the
+field's colour and remapped density held to a frozen NGP teacher's on
+marched samples.
 
 ``CurvedTrainer`` holds a curved model over its template mesh:
 
@@ -26,19 +33,23 @@ One training step (``curved_train_step``):
     the survivors;
   render_frame(pose, baked=True): the live proxy render through the
     baked atlas (``bake_atlas``, ``render.baked``);
-  eval_psnr(frames): PSNR of the training views.
+  eval_psnr(frames): PSNR of the training views;
+  save_checkpoint / load_checkpoint / resume / checkpoint /
+    checkpoint_best: checkpoints in ``train.trainer``'s format.
 
 The JAX trainer's ``lru``/``id()`` caches become explicit state here: the
 anchor table is built once per template mesh, the inference tables
 (bf16 copies of the hash grids) and the baked atlas once per parameter
 version (the params are updated in place, so a version, not their
-identity, says when they changed), and a ``PrepassState`` once per
-occupancy grid and render config (a refresh makes a new grid; nothing
-updates one in place).  The random draws of a step and of a refresh come
-from the trainer's ``torch.Generator`` (``sample_curved_batch``,
-``occupancy.sparse_draws``), or from the caller of ``curved_train_step``
-and ``curved_grid_step``.  The JAX package's ``curved_train_scan`` (steps
-fused into one TPU program) is a plain loop here.
+identity, says when they changed; a checkpoint load drops them), and a
+``PrepassState`` once per occupancy grid and render config (a refresh
+makes a new grid; nothing updates one in place).  The random draws of a
+step and of a refresh come from the trainer's ``torch.Generator``
+(``sample_curved_batch``, ``sample_distill_batch``,
+``occupancy.sparse_draws``), or from the caller of ``curved_train_step``,
+``distill_step`` and ``curved_grid_step``.  The JAX package's
+``curved_train_scan`` (steps fused into one TPU program) is a plain loop
+here.
 
 An imported texture (``train.field_io``: mode 'field', 'patch', 'shape'
 or 'unhash') renders through the same calls; its grid refresh evaluates
@@ -47,11 +58,9 @@ trained field's alone), over the z = 0 slab of the flat canvas or the
 cells near the imported mesh or points.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the training features of item 11.4 (distillation, camera and
-gamma optimisation, error-map sampling, progressive vertex levels),
-training in an import mode (item 11.2: the reference has no caller of a
-pose-free refit of an import), and the deferred shading of the baked
-render (item 12).
+item): progressive vertex levels (item 8), training in an import mode
+(item 11.2: the reference has no caller of a pose-free refit of an
+import), and the deferred shading of the baked render (item 12).
 """
 
 from __future__ import annotations
@@ -64,20 +73,25 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..data.rays import get_rays, sample_ray_indices
+from ..data.rays import error_map_draws, get_rays, sample_ray_indices
 from ..geometry import projector as proj
-from ..models import curved_field, normal_net
+from ..models import curved_field, ngp, normal_net
 from ..models.curved_field import CurvedFieldConfig
 from ..models.mesh_field import FieldRuntime, MeshFieldConfig, MeshFieldState
 from ..ops import occupancy as occ_mod
 from ..ops.hashgrid_packed import inference_table, packed_encode_bound
+from ..ops.marching import march_rays, near_far_from_aabb
 from ..ops.occupancy import OccupancyGrid
 from ..render import baked as baked_mod
+from ..render.compact import flat_points, flatten_samples
 from ..render.renderer import (PrepassState, RenderConfig, _round_up,
                                render_image, render_rays)
 from ..utils.metrics import psnr
-from .trainer import (TrainConfig, _map_params, apply_gradients,
-                      make_optimizer, param_leaves)
+from ..utils.misc import MetricsLogger
+from ..utils.transforms import axis_angle_to_matrix
+from .trainer import (CheckpointMethods, TrainConfig, _map_params,
+                      apply_gradients, make_optimizer, param_leaves,
+                      read_checkpoint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +116,9 @@ class CurvedTrainConfig(TrainConfig):
 class CurvedTrainState:
     """Mutable training state on one device.  ``step`` counts the
     updates; the params and their EMA change in place, so ``step`` is
-    also the version of both that the trainer's caches key on."""
+    also the version of both that the trainer's caches key on.
+    ``error_map`` [B, 128 * 128]: the per-frame sampling weights, ones at
+    the start (present when the state was made for B frames)."""
 
     params: dict[str, Any]
     optimizer: torch.optim.Adam
@@ -110,35 +126,73 @@ class CurvedTrainState:
     ema_params: dict[str, Any]
     occ: OccupancyGrid
     step: int = 0
+    error_map: torch.Tensor | None = None
 
 
 def init_curved_state(generator: torch.Generator, ccfg: CurvedFieldConfig,
                       rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
-                      params=None) -> CurvedTrainState:
+                      params=None, n_frames: int | None = None
+                      ) -> CurvedTrainState:
     """Fresh state on the generator's device: seeded params (or the given
     ones, e.g. converted from JAX, copied), zero Adam moments, the EMA
-    equal to the params, an empty occupancy grid."""
+    equal to the params, an empty occupancy grid.  With ``n_frames``: the
+    error map, and with ``optimize_camera`` / ``optimize_gamma`` the
+    per-frame leaves the params lack, after the model's (so the model's
+    leaves keep their order): camera = {dRs [B, 3], dts [B, 3], dfs
+    [B, 2]} zeros, gammas [B] 2.4."""
+    dev = generator.device
     if params is None:
         params = curved_field.init(generator, ccfg)
+    params = dict(params)
+    wants = ((tcfg.optimize_camera and "camera" not in params)
+             or (tcfg.optimize_gamma and "gammas" not in params))
+    if wants and n_frames is None:
+        raise ValueError("init_curved_state: camera / gamma optimisation "
+                         "needs n_frames")
+    if tcfg.optimize_camera and "camera" not in params:
+        params["camera"] = {
+            "dRs": torch.zeros((n_frames, 3), device=dev),
+            "dts": torch.zeros((n_frames, 3), device=dev),
+            "dfs": torch.zeros((n_frames, 2), device=dev)}
+    if tcfg.optimize_gamma and "gammas" not in params:
+        params["gammas"] = 2.4 * torch.ones((n_frames,), device=dev)
     params = _map_params(lambda t: t.detach().clone().requires_grad_(True),
                          params)
     opt, sched = make_optimizer(params, tcfg)
     return CurvedTrainState(
         params=params, optimizer=opt, scheduler=sched,
         ema_params=_map_params(lambda t: t.detach().clone(), params),
-        occ=occ_mod.create(rcfg.grid_size, rcfg.cascades,
-                           device=generator.device))
+        occ=occ_mod.create(rcfg.grid_size, rcfg.cascades, device=dev),
+        error_map=(torch.ones((n_frames, ERROR_MAP_CELLS), device=dev)
+                   if n_frames is not None else None))
 
 
 class CurvedBatch(NamedTuple):
-    """The random draws of one curved training step."""
+    """The random draws of one curved training step.  With the error map
+    the pixels are drawn from it (``emap``), and ``inds`` is None."""
 
     frame: torch.Tensor          # [] int64 training frame
-    inds: torch.Tensor           # [num_rays] int64 pixel indices
+    inds: torch.Tensor | None    # [num_rays] int64 pixel indices
     u: torch.Tensor              # [num_rays] f32 march jitter in [0, 1)
     bg: torch.Tensor             # [num_rays, 3] f32 per-pixel background
     noise: torch.Tensor | None   # [M, L * C] N(0, 1) feature noise
     level: int | None            # the clustering level
+    emap: tuple | None = None    # error-map draws (``error_map_draws``)
+
+
+class DistillBatch(NamedTuple):
+    """The random draws of one distillation step."""
+
+    frame: torch.Tensor          # [] int64 training frame
+    inds: torch.Tensor           # [num_rays] int64 pixel indices
+    u: torch.Tensor              # [num_rays] f32 march jitter in [0, 1)
+    noise: torch.Tensor | None   # [num_rays * 32, L * C] feature noise
+
+
+# cells of the coarse error map (128 x 128), and samples a ray of the
+# distillation buffer
+ERROR_MAP_CELLS = 128 * 128
+DISTILL_SAMPLES = 32
 
 
 def noise_rows(rcfg: RenderConfig, num_rays: int) -> int:
@@ -163,7 +217,11 @@ def sample_curved_batch(generator: torch.Generator, *, num_frames: int,
     dev = generator.device
     frame = torch.randint(0, num_frames, (), generator=generator,
                           device=dev)
-    inds, _ = sample_ray_indices(generator, H, W, tcfg.num_rays)
+    inds = emap = None
+    if tcfg.error_map:
+        emap = error_map_draws(generator, tcfg.num_rays)
+    else:
+        inds, _ = sample_ray_indices(generator, H, W, tcfg.num_rays)
     u = torch.rand((tcfg.num_rays,), generator=generator, device=dev)
     bg = torch.rand((tcfg.num_rays, 3), generator=generator, device=dev)
     noise = None
@@ -172,23 +230,66 @@ def sample_curved_batch(generator: torch.Generator, *, num_frames: int,
                              fcfg.encoder_f_out_dim), generator=generator,
                             device=dev)
     return CurvedBatch(frame=frame, inds=inds, u=u, bg=bg, noise=noise,
-                       level=level if fcfg.clustering else None)
+                       level=level if fcfg.clustering else None, emap=emap)
+
+
+def sample_distill_batch(generator: torch.Generator, *, num_frames: int,
+                         H: int, W: int, tcfg: "CurvedTrainConfig",
+                         fcfg: MeshFieldConfig) -> DistillBatch:
+    """A distillation step's draws on the generator's device: a frame,
+    uniform pixel indices, the march jitter and (with ``prob_model``) the
+    feature noise of the [num_rays * 32] sample buffer."""
+    dev = generator.device
+    frame = torch.randint(0, num_frames, (), generator=generator,
+                          device=dev)
+    inds, _ = sample_ray_indices(generator, H, W, tcfg.num_rays)
+    u = torch.rand((tcfg.num_rays,), generator=generator, device=dev)
+    noise = None
+    if fcfg.prob_model:
+        noise = torch.randn((tcfg.num_rays * DISTILL_SAMPLES,
+                             fcfg.encoder_f_out_dim), generator=generator,
+                            device=dev)
+    return DistillBatch(frame=frame, inds=inds, u=u, noise=noise)
 
 
 def _check_training_features(tcfg: "CurvedTrainConfig", mode: str):
-    for name, on in (("distillation", tcfg.distillation),
-                     ("optimize_camera", tcfg.optimize_camera),
-                     ("optimize_gamma", tcfg.optimize_gamma),
-                     ("error_map", tcfg.error_map),
-                     ("iters_per_level", tcfg.iters_per_level > 0)):
-        if on:
-            raise NotImplementedError(
-                f"curved training: {name} is not ported; ROADMAP Queue 1, "
-                f"item 11.4")
+    if tcfg.iters_per_level > 0:
+        raise NotImplementedError(
+            "curved training: progressive vertex levels (iters_per_level) "
+            "are not ported; ROADMAP Queue 1, item 8")
     if mode != "none":
         raise NotImplementedError(
             f"curved training: import mode {mode!r} is not ported; ROADMAP "
             f"Queue 1, item 11.2")
+
+
+def _safe_norm(x):
+    # eps inside the sqrt: the deltas start at exactly zero, where the
+    # gradient of ||x|| is NaN
+    return torch.sqrt(torch.sum(x * x, dim=-1) + 1e-12)
+
+
+def camera_regularization(cam) -> torch.Tensor:
+    """mean |dfs| + mean |dRs| + 1e-4 mean |dts| of the camera deltas."""
+    return (torch.mean(_safe_norm(cam["dfs"]))
+            + torch.mean(_safe_norm(cam["dRs"]))
+            + 1e-4 * torch.mean(_safe_norm(cam["dts"])))
+
+
+def apply_camera_deltas(pose, intrinsics, cam, frame):
+    """One frame's pose [4, 4] and intrinsics [4] moved by its trainable
+    deltas: R' = axis_angle(dRs[f]) R, t' = t + dts[f], (fx, fy) + dfs[f].
+    Differentiable in the deltas."""
+    dR = axis_angle_to_matrix(cam["dRs"][frame])
+    R = dR @ pose[:3, :3]
+    t = pose[:3, 3] + cam["dts"][frame]
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
+                          device=R.device)
+    new_pose = torch.cat([torch.cat([R, t[:, None]], 1), bottom], 0)
+    K = intrinsics + torch.cat([cam["dfs"][frame],
+                                torch.zeros(2, dtype=R.dtype,
+                                            device=R.device)])
+    return new_pose, K
 
 
 def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
@@ -196,7 +297,7 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
                       intrinsics, *, ccfg: CurvedFieldConfig,
                       rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
                       H: int, W: int, step: int = 0, mode: str = "none",
-                      rt=None, anchor_tab=None):
+                      rt=None, anchor_tab=None, error_map=None):
     """(loss [], render output) of one batch, differentiable in params:
     the MSE against the pixels composited on the batch's background, the
     cosine loss of the composited fine normals against their
@@ -205,10 +306,28 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
     ``curved_field.regular_loss`` at the batch's clustering level.
     poses [B, 4, 4], images [B, H, W, C] uint8, intrinsics [4] on the
     params' device; ``anchor_tab``: the per-sample anchors (with
-    ``anchor_per_sample``), else one kNN anchor a ray."""
+    ``anchor_per_sample``), else one kNN anchor a ray.
+
+    The training features of ``tcfg``: with ``optimize_camera`` the rays
+    leave the frame's pose and intrinsics moved by params['camera'] and
+    the loss adds ``camera_regularization`` at ``regular_loss``'s weight
+    for ``step``; with ``optimize_gamma`` the light model tone-maps with
+    params['gammas'][frame] and the loss adds 5 (gamma - 2.4)^2; with
+    ``error_map`` the pixels come from the frame's row ``error_map``
+    [128 * 128] and the batch's draws, and the output carries the cells
+    (``inds_coarse``).  The output also carries each ray's colour MSE
+    (``rgb_loss_per_ray``)."""
     _check_training_features(tcfg, mode)
-    rays = get_rays(poses[batch.frame], intrinsics, H, W, batch.inds)
-    pixels = images[batch.frame].reshape(H * W, -1)[batch.inds].to(
+    inds, inds_coarse = batch.inds, None
+    if tcfg.error_map:
+        inds, inds_coarse = sample_ray_indices(
+            None, H, W, tcfg.num_rays, error_map=error_map, draws=batch.emap)
+    pose, K = poses[batch.frame], intrinsics
+    if tcfg.optimize_camera:
+        pose, K = apply_camera_deltas(pose, K, params["camera"], batch.frame)
+    gamma = params["gammas"][batch.frame] if tcfg.optimize_gamma else None
+    rays = get_rays(pose, K, H, W, inds)
+    pixels = images[batch.frame].reshape(H * W, -1)[inds].to(
         torch.float32) / 255.0
     if pixels.shape[-1] == 4:
         gt_rgb = pixels[:, :3] * pixels[:, 3:] \
@@ -230,13 +349,17 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
     def field(x, d, frames=None):
         return curved_field.forward(params, field_state, x, d, ccfg, rt,
                                     mode=mode, noise=batch.noise,
-                                    training=True, frames=frames)
+                                    training=True, gamma=gamma,
+                                    frames=frames)
 
     out = render_rays(field, occ.occ, rays["rays_o"], rays["rays_d"],
                       rcfg_eff, max_samples=rcfg.max_samples_train,
                       perturb=True, u=batch.u, bg_color=batch.bg,
                       anchor_fn=anchor)
-    loss = torch.mean(torch.mean((out["image"] - gt_rgb) ** 2, dim=-1))
+    per_ray = torch.mean((out["image"] - gt_rgb) ** 2, dim=-1)
+    out["rgb_loss_per_ray"] = per_ray
+    out["inds_coarse"] = inds_coarse
+    loss = torch.mean(per_ray)
     if "normal" in out and "normal_grad" in out:
         n_est = out["normal"]
         n_grad = out["normal_grad"].detach()
@@ -253,8 +376,13 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
         err = -torch.clamp(cos, max=thr)
         loss = loss + torch.sum(torch.where(finite, err, 0.0)) \
             / torch.clamp(torch.sum(finite), min=1)
-    loss = loss + curved_field.regular_loss(params, ccfg, step,
-                                            level=batch.level)
+    cam_loss = (camera_regularization(params["camera"])
+                if tcfg.optimize_camera else None)
+    loss = loss + curved_field.regular_loss(
+        params, ccfg, step, optimize_camera_loss=cam_loss, level=batch.level,
+        camera_reg_weight=tcfg.camera_reg_weight)
+    if tcfg.optimize_gamma:
+        loss = loss + 5.0 * (gamma - 2.4) ** 2
     return loss, out
 
 
@@ -266,12 +394,82 @@ def curved_train_step(state: CurvedTrainState, batch: CurvedBatch,
                       anchor_tab=None) -> dict[str, torch.Tensor]:
     """One iteration on ``batch``: loss, backward into the params only
     (not into the sample points that the -grad(sigma) target
-    differentiated), ``apply_gradients``.  Updates ``state`` in place;
-    returns device scalars (no host sync)."""
-    loss, _ = curved_train_loss(
+    differentiated), ``apply_gradients``; with ``error_map`` the sampled
+    cells of the frame's map become 0.1 old + 0.9 the ray's colour MSE.
+    Updates ``state`` in place; returns device scalars (no host sync)."""
+    emap = state.error_map[batch.frame] if tcfg.error_map else None
+    loss, out = curved_train_loss(
         state.params, state.occ, batch, field_state, poses, images,
         intrinsics, ccfg=ccfg, rcfg=rcfg, tcfg=tcfg, H=H, W=W,
-        step=state.step, mode=mode, rt=rt, anchor_tab=anchor_tab)
+        step=state.step, mode=mode, rt=rt, anchor_tab=anchor_tab,
+        error_map=emap)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward(inputs=param_leaves(state.params))
+    apply_gradients(state, tcfg)
+    if tcfg.error_map:
+        cells = out["inds_coarse"]
+        state.error_map[batch.frame, cells] = (
+            0.1 * emap[cells] + 0.9 * out["rgb_loss_per_ray"].detach())
+    return {"loss": loss.detach()}
+
+
+def distill_loss(params, occ: OccupancyGrid, batch: DistillBatch,
+                 field_state: MeshFieldState, teacher_params, poses,
+                 intrinsics, *, ccfg: CurvedFieldConfig,
+                 ncfg: ngp.NGPConfig, rcfg: RenderConfig,
+                 tcfg: "CurvedTrainConfig", H: int, W: int,
+                 mode: str = "none") -> torch.Tensor:
+    """The distillation loss of one batch, differentiable in params: the
+    batch's rays marched through the grid into a [num_rays * 32] sample
+    buffer, where the curved field's colour and remapped density
+    1 - exp(-sigma) are held to the frozen NGP teacher's by MSE over the
+    valid samples (colour over its three channels).  The samples anchor
+    by the kNN frame of each ray's first sample."""
+    _check_training_features(tcfg, mode)
+    rays = get_rays(poses[batch.frame], intrinsics, H, W, batch.inds)
+    o, d = rays["rays_o"], rays["rays_d"]
+    b = rcfg.bound
+    aabb = torch.tensor([-b] * 3 + [b] * 3, dtype=o.dtype, device=o.device)
+    nears, fars = near_far_from_aabb(o, d, aabb, rcfg.min_near)
+    m = march_rays(o, d, occ.occ, nears, fars, bound=b,
+                   cascades=rcfg.cascades, grid_size=rcfg.grid_size,
+                   max_steps=rcfg.max_steps,
+                   max_samples=rcfg.max_samples_train,
+                   dt_gamma=rcfg.dt_gamma, perturb=True, u=batch.u)
+    flat = flatten_samples(m, tcfg.num_rays * DISTILL_SAMPLES)
+    xyzs, dirs = flat_points(o, d, flat, b)
+    with torch.no_grad():
+        sig_t, rgb_t = ngp.forward(teacher_params, xyzs, dirs, ncfg)
+    frames = None
+    if _use_frames(ccfg, mode):
+        x_seed = torch.clamp(o + m.ts[:, :1] * d, -b, b)
+        rframes = _ray_frames(field_state, x_seed, m.counts > 0, ccfg)
+        rid = torch.clamp(flat.ray_id, 0, tcfg.num_rays - 1)
+        frames = {k: v[rid] for k, v in rframes.items()}
+    sigma, color, _ = curved_field.forward(
+        params, field_state, xyzs, dirs, ccfg, mode=mode, noise=batch.noise,
+        training=True, frames=frames)
+    remap = 1.0 - torch.exp(-sigma)
+    remap_t = 1.0 - torch.exp(-sig_t)
+    valid = flat.valid
+    n = torch.clamp(torch.sum(valid), min=1)
+    return (torch.sum(torch.where(valid[:, None], (color - rgb_t) ** 2, 0.0))
+            / (3 * n)
+            + torch.sum(torch.where(valid, (remap - remap_t) ** 2, 0.0)) / n)
+
+
+def distill_step(state: CurvedTrainState, batch: DistillBatch,
+                 field_state: MeshFieldState, teacher_params, poses,
+                 intrinsics, *, ccfg: CurvedFieldConfig,
+                 ncfg: ngp.NGPConfig, rcfg: RenderConfig,
+                 tcfg: "CurvedTrainConfig", H: int, W: int,
+                 mode: str = "none") -> dict[str, torch.Tensor]:
+    """One distillation iteration: ``distill_loss``, backward,
+    ``apply_gradients`` (every leaf steps, the ones the loss does not
+    reach with a zero gradient).  Updates ``state`` in place."""
+    loss = distill_loss(state.params, state.occ, batch, field_state,
+                        teacher_params, poses, intrinsics, ccfg=ccfg,
+                        ncfg=ncfg, rcfg=rcfg, tcfg=tcfg, H=H, W=W, mode=mode)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward(inputs=param_leaves(state.params))
     apply_gradients(state, tcfg)
@@ -489,22 +687,27 @@ def curved_infer_params(params, ccfg: CurvedFieldConfig):
     return dict(params, field=field)
 
 
-class CurvedTrainer:
+class CurvedTrainer(CheckpointMethods):
     """The curved model on one scene and template mesh.
 
     dataset: poses [B, 4, 4], images [B, H, W, C] uint8, intrinsics [4],
-    H, W, num_frames (``data.synthetic.SyntheticSphereDataset``);
-    field_state: ``mesh_field.make_state(MeshProjector(mesh,
-    device=device))``.  The params are seeded from ``seed``; to start
-    from others (e.g. converted JAX params), replace ``state`` with
-    ``init_curved_state(tr.generator, ..., params=params)``, or, to
-    render only, set ``state.params`` / ``ema_params``.  Everything lives
-    on ``device``."""
+    H, W, num_frames (``data.synthetic.SyntheticSphereDataset``,
+    ``data.provider.NeRFDataset``); field_state:
+    ``mesh_field.make_state(MeshProjector(mesh, device=device))``.  The
+    params are seeded from ``seed``; to start from others (e.g. converted
+    JAX params), replace ``state`` with ``init_curved_state(tr.generator,
+    ..., params=params, n_frames=B)``, or, to render only, set
+    ``state.params`` / ``ema_params``.  ``teacher``: (NGP params,
+    NGPConfig), the frozen teacher of ``tcfg.distillation``
+    (``load_ngp_teacher``).  With a ``workspace`` the trainer logs to
+    ``log_curved.jsonl`` there, and its rotating and best checkpoints go
+    to ``workspace/checkpoints``.  Everything lives on ``device``."""
 
     def __init__(self, dataset, field_state: MeshFieldState,
                  ccfg: CurvedFieldConfig, rcfg: RenderConfig,
                  tcfg: CurvedTrainConfig, *, seed: int = 0,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", teacher=None,
+                 workspace: str | None = None):
         # the concrete device ("cuda" -> cuda:<current>), as a tensor's
         # device reads; raises where there is no such device
         self.device = torch.empty(0, device=device).device
@@ -514,10 +717,15 @@ class CurvedTrainer:
                 f"{field_state.projector.vertices.device} (build the "
                 f"MeshProjector with device={self.device})")
         self.dataset = dataset
+        self.workspace = workspace
+        self.logger = (MetricsLogger(workspace, "curved")
+                       if workspace is not None else None)
+        self.teacher = teacher
         self.field_state = field_state
         self.ccfg, self.rcfg, self.tcfg = ccfg, rcfg, tcfg
         self.generator = torch.Generator(self.device).manual_seed(seed)
-        self.state = init_curved_state(self.generator, ccfg, rcfg, tcfg)
+        self.state = init_curved_state(self.generator, ccfg, rcfg, tcfg,
+                                       n_frames=dataset.num_frames)
         self.poses = torch.as_tensor(dataset.poses, device=self.device)
         self.images = torch.as_tensor(dataset.images, device=self.device)
         self.intrinsics = torch.as_tensor(dataset.intrinsics,
@@ -541,16 +749,20 @@ class CurvedTrainer:
         self._prepass_occ = None         # the grid the prepasses are of
         self._prepass: dict[RenderConfig, PrepassState] = {}
 
-    def train(self, steps: int) -> dict[str, Any]:
+    def train(self, steps: int, log_every: int = 0) -> dict[str, Any]:
         """Run ``steps`` iterations, refreshing the density grid before
         every step whose count is a multiple of ``grid_update_interval``
         (always over the near cells, so ``grid_full_updates`` does not
-        apply, as in the JAX trainer).  ``tcfg.scan_steps`` has no effect:
-        the JAX package fuses that many steps into one TPU program, here
-        the steps are a plain loop.
+        apply, as in the JAX trainer).  With ``tcfg.distillation`` and a
+        teacher, each step is a ``distill_step`` with probability
+        ``distillation_prob`` (the coins of the whole call are drawn in
+        one transfer), else a ``curved_train_step``.  ``tcfg.scan_steps``
+        has no effect: the JAX package fuses that many steps into one TPU
+        program, here the steps are a plain loop.
 
         Returns the last step's loss and ``losses``, every step's loss
-        (one host sync at the end)."""
+        (one host sync at the end; with ``log_every`` also one every that
+        many steps, to print and log the loss)."""
         _check_training_features(self.tcfg, self.mode)
         leaves = param_leaves(self.state.params)
         held = self.state.optimizer.param_groups[0]["params"]
@@ -560,27 +772,49 @@ class CurvedTrainer:
                 "CurvedTrainer.train: state.params are not the params of "
                 "state.optimizer; build the state with init_curved_state("
                 "..., params=params)")
-        fcfg = self.ccfg.field
-        # the clustering levels of the whole call, in one transfer
+        fcfg, tcfg = self.ccfg.field, self.tcfg
+        # the clustering levels and distillation coins of the whole call,
+        # in one transfer
         levels = (torch.randint(0, fcfg.num_levels, (steps,),
                                 generator=self.generator,
                                 device=self.device).tolist()
                   if fcfg.clustering else [None] * steps)
+        distill = [False] * steps
+        if tcfg.distillation and self.teacher is not None:
+            distill = (torch.rand((steps,), generator=self.generator,
+                                  device=self.device)
+                       < tcfg.distillation_prob).tolist()
         losses = []
         for i in range(steps):
-            if self.state.step % self.tcfg.grid_update_interval == 0:
+            if self.state.step % tcfg.grid_update_interval == 0:
                 self._refresh()
-            batch = sample_curved_batch(
-                self.generator, num_frames=self.dataset.num_frames,
-                H=self.H, W=self.W, tcfg=self.tcfg, rcfg=self.rcfg,
-                fcfg=fcfg, level=levels[i])
-            m = curved_train_step(
-                self.state, batch, self.field_state, self.poses,
-                self.images, self.intrinsics, ccfg=self.ccfg,
-                rcfg=self.rcfg, tcfg=self.tcfg, H=self.H, W=self.W,
-                mode=self.mode, rt=self.runtime,
-                anchor_tab=self._refresh_anchor_tab())
+            if distill[i]:
+                t_params, t_cfg = self.teacher
+                batch = sample_distill_batch(
+                    self.generator, num_frames=self.dataset.num_frames,
+                    H=self.H, W=self.W, tcfg=tcfg, fcfg=fcfg)
+                m = distill_step(
+                    self.state, batch, self.field_state, t_params,
+                    self.poses, self.intrinsics, ccfg=self.ccfg, ncfg=t_cfg,
+                    rcfg=self.rcfg, tcfg=tcfg, H=self.H, W=self.W,
+                    mode=self.mode)
+            else:
+                batch = sample_curved_batch(
+                    self.generator, num_frames=self.dataset.num_frames,
+                    H=self.H, W=self.W, tcfg=tcfg, rcfg=self.rcfg,
+                    fcfg=fcfg, level=levels[i])
+                m = curved_train_step(
+                    self.state, batch, self.field_state, self.poses,
+                    self.images, self.intrinsics, ccfg=self.ccfg,
+                    rcfg=self.rcfg, tcfg=tcfg, H=self.H, W=self.W,
+                    mode=self.mode, rt=self.runtime,
+                    anchor_tab=self._refresh_anchor_tab())
             losses.append(m["loss"])
+            if log_every and (i + 1) % log_every == 0:
+                print(f"step {self.state.step}: "
+                      f"loss={float(m['loss']):.5f}")
+                if self.logger is not None:
+                    self.logger.log(self.state.step, loss=float(m["loss"]))
         losses = torch.stack(losses).tolist() if losses else []
         return {"loss": losses[-1] if losses else float("nan"),
                 "losses": losses}
@@ -796,3 +1030,37 @@ class CurvedTrainer:
                 gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
             vals.append(psnr(out["image"], gt))
         return float(np.mean(vals))
+
+    def _params_replaced(self):
+        # a load changes the params in place: drop the tables made from
+        # them, the atlas and the prepasses
+        self._infer, self._bake = [], []
+        self._prepass_occ, self._prepass = None, {}
+
+
+def load_ngp_teacher(workspace: str, mcfg: ngp.NGPConfig | None = None, *,
+                     device: torch.device | str = "cuda"):
+    """The coarse NGP of ``workspace/checkpoints/ngp`` (the port's
+    checkpoint, as ``main_nerf_torch.py`` saves it) as the frozen
+    distillation teacher: (params on ``device``, NGPConfig), or None with
+    a warning where there is no usable checkpoint."""
+    import os
+
+    path = os.path.join(workspace, "checkpoints", "ngp")
+    if not os.path.isdir(path):
+        warnings.warn(f"no coarse NGP checkpoint at {path}; "
+                      "distillation disabled (run main_nerf_torch.py first)")
+        return None
+    try:
+        raw = read_checkpoint(path)
+    except Exception as e:                        # noqa: BLE001
+        warnings.warn(f"teacher restore failed ({e!r}); "
+                      "distillation disabled")
+        return None
+    params = raw.get("params") if isinstance(raw, dict) else None
+    if not params:
+        warnings.warn(f"checkpoint at {path} has no 'params' tree; "
+                      "distillation disabled")
+        return None
+    params = _map_params(lambda t: t.to(device), params)
+    return params, (mcfg if mcfg is not None else ngp.NGPConfig())

@@ -16,7 +16,7 @@ exports (port of ``nerf_texture_tpu/train/field_io.py``).
 - ``save_mesh`` writes the isosurface of a density (``ops.isosurface``),
   ``save_point_cloud`` the depth back-projection of rendered views,
   ``take_photo`` / ``render_train`` / ``render_round`` rendered frames as
-  8-bit RGB PNG files (written with ``zlib``: no image library needed).
+  8-bit RGB PNG files (``data.images.write_png``: no image library).
 
 The npz files have the JAX package's schema, so a file written by one
 package loads in the other.
@@ -25,12 +25,11 @@ package loads in the other.
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
 
+from ..data.images import write_png
 from ..data.poses import orbit_pose
 from ..geometry import projector as proj
 from ..geometry.mesh import Mesh, save_obj, save_ply_points
@@ -290,24 +289,6 @@ def save_point_cloud(trainer, path: str, *, n_views: int = 12,
 # ---------------------------------------------------------------------------
 # offline renderers
 # ---------------------------------------------------------------------------
-
-def write_png(path: str, img: np.ndarray):
-    """Write img [H, W, 3] (or [H, W, 4]) uint8 as an 8-bit RGB (RGBA)
-    PNG: one IDAT chunk, filter type 0 on every row."""
-    h, w, c = img.shape
-    raw = b"".join(b"\x00" + row.tobytes()
-                   for row in np.ascontiguousarray(img, np.uint8))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-
 
 def take_photo(trainer, pose, *, H=None, W=None, path: str | None = None,
                bg_color=1.0):

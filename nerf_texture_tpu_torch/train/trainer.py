@@ -7,7 +7,10 @@ One training step:
   compacted sample pool -> field (AMP table read) -> composite -> MSE ->
   backward -> Adam (+ LambdaLR decay) -> EMA of the parameters
 
-and every ``grid_update_interval`` steps a density-grid refresh.  The
+and every ``grid_update_interval`` steps a density-grid refresh.
+Checkpoints (``save_checkpoint`` and the rotating, best and resume
+helpers below) are directories holding one ``torch.save`` file of the
+state in the JAX state's layout.  The
 random draws of a step (frame, pixel indices, march jitter, background)
 come from ``sample_batch`` and those of a refresh from
 ``occupancy.grid_draws``, both on one ``torch.Generator``, so that a test
@@ -23,6 +26,9 @@ measure; the pool's activations fit the card).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -36,6 +42,7 @@ from ..ops.occupancy import OccupancyGrid
 from ..render.renderer import (PrepassState, RenderConfig, render_image,
                                render_rays)
 from ..utils.metrics import psnr
+from ..utils.misc import MetricsLogger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +173,13 @@ def train_loss(params, occ: OccupancyGrid, batch: Batch, poses, images,
 def apply_gradients(state, tcfg: TrainConfig):
     """The update after a backward, of a ``TrainState`` or a curved
     ``CurvedTrainState``: Adam on the params' ``.grad``, one step of the
-    LR decay, the EMA of the new params; ``state.step`` + 1."""
+    LR decay, the EMA of the new params; ``state.step`` + 1.  A leaf the
+    loss did not reach gets a zero gradient, so that, as in optax, its
+    moments decay and its step count stays the others' (torch's Adam
+    would skip it)."""
+    for p in param_leaves(state.params):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     state.optimizer.step()
     state.scheduler.step()
     with torch.no_grad():
@@ -273,19 +286,89 @@ def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
                         plain_select=plain_select)
 
 
-class Trainer:
+class CheckpointMethods:
+    """The checkpoint methods of both trainers (``Trainer``,
+    ``CurvedTrainer``), over their ``state`` and ``workspace``.  A trainer
+    that caches what it makes from its params or grid drops it in
+    ``_params_replaced`` / ``_state_replaced``."""
+
+    def save_checkpoint(self, path: str):
+        """The whole state to the directory ``path``."""
+        save_checkpoint(self.state, path)
+
+    def load_checkpoint(self, path: str, strict: bool = True):
+        """Load the state saved at ``path`` (in place; ``strict=False``:
+        ``tolerant_load``)."""
+        if strict:
+            load_checkpoint(self.state, path)
+        else:
+            tolerant_load(self, path)
+        self._state_replaced()
+
+    def load_params(self, params) -> tuple[list[str], list[str]]:
+        """Copy a loaded params tree into the params (``load_params``)."""
+        out = load_params(self.state, params)
+        self._params_replaced()
+        return out
+
+    def _params_replaced(self):
+        pass
+
+    def _state_replaced(self):
+        self._params_replaced()
+
+    def checkpoint(self, workspace: str | None = None,
+                   max_keep: int = 2) -> str:
+        """``save_rotating`` in ``workspace`` (default the trainer's)."""
+        return save_rotating(self, _workspace(self, workspace),
+                             max_keep=max_keep)
+
+    def checkpoint_best(self, metric: float, workspace: str | None = None,
+                        mode: str = "max") -> bool:
+        """``save_best`` in ``workspace`` (default the trainer's)."""
+        return save_best(self, metric, _workspace(self, workspace),
+                         mode=mode)
+
+    def load_latest(self, workspace: str | None = None) -> bool:
+        path = latest_checkpoint(workspace or self.workspace or "")
+        if path is None:
+            return False
+        self.load_checkpoint(path)
+        return True
+
+    def load_best(self, workspace: str | None = None) -> bool:
+        path = best_checkpoint(workspace or self.workspace or "")
+        if path is None:
+            return False
+        self.load_checkpoint(path)
+        return True
+
+    def resume(self, ckpt: str = "latest",
+               workspace: str | None = None) -> str:
+        """See ``resume``."""
+        return resume(self, ckpt, workspace=workspace)
+
+
+class Trainer(CheckpointMethods):
     """NGP training on one scene.
 
     dataset: poses [B, 4, 4], images [B, H, W, C] uint8, intrinsics [4],
-    H, W, num_frames (``data.synthetic.SyntheticSphereDataset``).  The
-    scene and the state live on ``device``; ``seed`` seeds the one
-    generator that initialises the params and draws every step."""
+    H, W, num_frames (``data.synthetic.SyntheticSphereDataset``,
+    ``data.provider.NeRFDataset``).  The scene and the state live on
+    ``device``; ``seed`` seeds the one generator that initialises the
+    params and draws every step.  With a ``workspace`` the trainer logs
+    to ``log_ngp.jsonl`` there, and its rotating and best checkpoints go
+    to ``workspace/checkpoints``."""
 
     def __init__(self, dataset, model_cfg: ngp.NGPConfig,
                  render_cfg: RenderConfig, train_cfg: TrainConfig, *,
-                 seed: int = 0, device: torch.device | str = "cuda"):
+                 seed: int = 0, device: torch.device | str = "cuda",
+                 workspace: str | None = None):
         self.device = torch.device(device)
         self.dataset = dataset
+        self.workspace = workspace
+        self.logger = (MetricsLogger(workspace, "ngp")
+                       if workspace is not None else None)
         self.mcfg = model_cfg
         self.rcfg = render_cfg
         self.tcfg = train_cfg
@@ -308,11 +391,12 @@ class Trainer:
             bound=self.rcfg.bound)
         self._marked = True
 
-    def train(self, steps: int) -> dict[str, Any]:
+    def train(self, steps: int, log_every: int = 0) -> dict[str, Any]:
         """Run ``steps`` iterations (a grid refresh every
         ``grid_update_interval`` steps).  Returns the last step's loss and
         mean samples per ray, and ``losses``, every step's loss (one host
-        sync at the end)."""
+        sync at the end; with ``log_every`` also one every that many
+        steps, to print and log the step's metrics)."""
         if not self._marked:
             self.mark_untrained()
         tcfg, rcfg = self.tcfg, self.rcfg
@@ -335,6 +419,12 @@ class Trainer:
                                  self.intrinsics, mcfg=self.mcfg, rcfg=rcfg,
                                  tcfg=tcfg, H=self.H, W=self.W)
             losses.append(metrics["loss"])
+            if log_every and (i + 1) % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                print(f"step {step + 1}: loss={m['loss']:.5f} "
+                      f"samples/ray={m['mean_samples']:.1f}")
+                if self.logger is not None:
+                    self.logger.log(step + 1, **m)
         out = {k: float(v) for k, v in metrics.items()}
         out["losses"] = torch.stack(losses).tolist() if losses else []
         return out
@@ -364,3 +454,339 @@ class Trainer:
                 gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
             vals.append(psnr(out["image"], gt))
         return float(np.mean(vals))
+
+    def _state_replaced(self):
+        # a loaded grid is a trained one: `train` must not mark it again
+        self._marked = True
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+#
+# A checkpoint is a directory holding one ``torch.save`` file, CKPT_FILE,
+# of the state as a tree of CPU tensors in the JAX state's layout:
+#   params, opt_state = [{count, mu, nu}, {count}] (Adam's step count and
+#   moments, as optax's (ScaleByAdamState, ScaleByScheduleState)),
+#   ema_params, occ = {density, occ, mean_density, iter_density}, step,
+#   and for the curved model error_map.
+# It loads with ``torch.load(weights_only=True)``.  The random stream is
+# not saved: a resumed trainer draws from its own seed.
+# ---------------------------------------------------------------------------
+
+CKPT_FILE = "state.pt"
+
+
+def _workspace(trainer, workspace: str | None) -> str:
+    ws = workspace or trainer.workspace
+    if ws is None:
+        raise ValueError("no workspace configured")
+    return ws
+
+
+def _detached(tree):
+    return _map_params(lambda t: t.detach(), tree)
+
+
+def state_tree(state, *, ema_as_params: bool = False) -> dict[str, Any]:
+    """The checkpoint tree of a ``TrainState`` or ``CurvedTrainState``
+    (views of its tensors; the moments of a leaf that has not stepped
+    yet are zeros).  ``ema_as_params`` puts the EMA in ``params`` (the
+    best checkpoint)."""
+    opt = state.optimizer
+
+    def moment(name):
+        return _map_params(
+            lambda p: opt.state[p][name].detach() if p in opt.state
+            else torch.zeros_like(p, requires_grad=False), state.params)
+
+    count = torch.tensor(state.step, dtype=torch.int32)
+    o = state.occ
+    tree = {
+        "params": _detached(state.ema_params if ema_as_params
+                            else state.params),
+        "opt_state": [{"count": count, "mu": moment("exp_avg"),
+                       "nu": moment("exp_avg_sq")}, {"count": count}],
+        "ema_params": _detached(state.ema_params),
+        "occ": {"density": o.density, "occ": o.occ,
+                "mean_density": o.mean_density,
+                "iter_density": o.iter_density},
+        "step": count,
+    }
+    if getattr(state, "error_map", None) is not None:
+        tree["error_map"] = state.error_map
+    return tree
+
+
+def save_checkpoint(state, path: str, *, ema_as_params: bool = False):
+    """Write ``state_tree(state)`` to ``path/state.pt`` (the directory is
+    made; the file is replaced atomically)."""
+    os.makedirs(path, exist_ok=True)
+    tree = _map_params(lambda t: t.cpu().clone(),
+                       state_tree(state, ema_as_params=ema_as_params))
+    tmp = os.path.join(path, CKPT_FILE + ".tmp")
+    torch.save(tree, tmp)
+    os.replace(tmp, os.path.join(path, CKPT_FILE))
+
+
+def read_checkpoint(path: str) -> dict[str, Any]:
+    """The tree saved at the checkpoint directory ``path``, on the CPU."""
+    return torch.load(os.path.join(path, CKPT_FILE), map_location="cpu",
+                      weights_only=True)
+
+
+def _paths(tree, p: str = "") -> dict[str, Any]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, f"{p}.{k}" if p else str(k)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_paths(v, f"{p}[{i}]"))
+        return out
+    return {p: tree}
+
+
+def _ordered(like, tree):
+    """``tree`` with the dict keys in ``like``'s order (the leaf order
+    that ``param_leaves`` reads)."""
+    if isinstance(like, dict):
+        return {k: _ordered(like[k], tree[k]) for k in like}
+    if isinstance(like, (list, tuple)):
+        return [_ordered(a, b) for a, b in zip(like, tree)]
+    return tree
+
+
+def _apply_tree(state, tree):
+    """Copy a checkpoint tree of ``state``'s layout into ``state``: the
+    params and the EMA in place (the optimizer keeps its tensors), Adam's
+    moments and step count, the LR schedule at the saved step, the grid,
+    the step and the error map."""
+    dev = param_leaves(state.params)[0].device
+    step = int(tree["step"])
+    with torch.no_grad():
+        for dst, src in ((state.params, tree["params"]),
+                         (state.ema_params, tree["ema_params"])):
+            for a, b in zip(param_leaves(dst),
+                            param_leaves(_ordered(dst, src))):
+                a.copy_(b)
+    adam = tree["opt_state"][0]
+    count = int(adam["count"])
+    opt = state.optimizer
+    opt.state.clear()
+    if count > 0:
+        for p, m, v in zip(param_leaves(state.params),
+                           param_leaves(_ordered(state.params, adam["mu"])),
+                           param_leaves(_ordered(state.params, adam["nu"]))):
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": m.to(dev).clone(),
+                            "exp_avg_sq": v.to(dev).clone()}
+    sched = state.scheduler
+    sched.last_epoch = count
+    lrs = [base * fn(count) for base, fn in zip(sched.base_lrs,
+                                                 sched.lr_lambdas)]
+    for group, lr in zip(opt.param_groups, lrs):
+        group["lr"] = lr
+    sched._last_lr = lrs
+    o = tree["occ"]
+    state.occ = OccupancyGrid(
+        density=o["density"].to(dev).clone(), occ=o["occ"].to(dev).clone(),
+        mean_density=o["mean_density"].to(dev).clone(),
+        iter_density=o["iter_density"].to(dev).clone())
+    state.step = step
+    if "error_map" in tree and getattr(state, "error_map", None) is not None:
+        state.error_map = tree["error_map"].to(dev).clone()
+
+
+def load_checkpoint(state, path: str):
+    """Strict load: the checkpoint at ``path`` must hold exactly the
+    state's leaves, each of the state's shape and dtype (else
+    ValueError); then ``_apply_tree``."""
+    tree = read_checkpoint(path)
+    want = _paths(state_tree(state))
+    got = _paths(tree)
+    bad = sorted(set(want) ^ set(got))
+    bad += [k for k in sorted(set(want) & set(got))
+            if (tuple(want[k].shape), want[k].dtype)
+            != (tuple(got[k].shape), got[k].dtype)]
+    if bad:
+        raise ValueError(f"checkpoint {path} does not match the state "
+                         f"(load with strict=False to merge): {bad[:8]}")
+    _apply_tree(state, tree)
+
+
+def tolerant_merge(target, loaded, path: str = ""):
+    """Merge a loaded tree into ``target`` (nested dicts / lists of
+    tensors), keeping the target's value wherever ``loaded`` lacks a key
+    or a leaf's shape or dtype differs.  Returns (merged, missing,
+    unexpected), the key paths as the JAX package's ``tolerant_merge``
+    writes them (``a.b[0].c``)."""
+    missing: list[str] = []
+    unexpected: list[str] = []
+
+    def rec(tgt, src, p):
+        if isinstance(tgt, dict):
+            if not isinstance(src, dict):
+                missing.append(p or "<root>")
+                return tgt
+            out = {}
+            for k, v in tgt.items():
+                cp = f"{p}.{k}" if p else str(k)
+                if k in src:
+                    out[k] = rec(v, src[k], cp)
+                else:
+                    missing.append(cp)
+                    out[k] = v
+            unexpected.extend(f"{p}.{k}" if p else str(k)
+                              for k in src if k not in tgt)
+            return out
+        if isinstance(tgt, (list, tuple)):
+            if not isinstance(src, (list, tuple)):
+                missing.append(p or "<root>")
+                return tgt
+            out = []
+            for i, v in enumerate(tgt):
+                cp = f"{p}[{i}]"
+                if i < len(src) and src[i] is not None:
+                    out.append(rec(v, src[i], cp))
+                else:
+                    missing.append(cp)
+                    out.append(v)
+            unexpected.extend(f"{p}[{i}]" for i in range(len(tgt), len(src)))
+            return type(tgt)(out)
+        if src is None:
+            missing.append(p)
+            return tgt
+        if not torch.is_tensor(src) or (tuple(src.shape), src.dtype) != (
+                tuple(tgt.shape), tgt.dtype):
+            shape = tuple(src.shape) if torch.is_tensor(src) else type(src)
+            missing.append(f"{p} (shape/dtype mismatch: ckpt {shape}/"
+                           f"{getattr(src, 'dtype', None)} vs "
+                           f"{tuple(tgt.shape)}/{tgt.dtype})")
+            return tgt
+        return src
+
+    merged = rec(target, loaded, path)
+    return merged, missing, unexpected
+
+
+def load_params(state, params) -> tuple[list[str], list[str]]:
+    """Copy a loaded params tree into ``state.params`` in place, leaves it
+    lacks kept (``tolerant_merge``); the optimizer, EMA, step and grid
+    stay.  Returns (missing, unexpected)."""
+    merged, missing, unexpected = tolerant_merge(_detached(state.params),
+                                                 params)
+    with torch.no_grad():
+        for a, b in zip(param_leaves(state.params), param_leaves(merged)):
+            a.copy_(b)
+    return missing, unexpected
+
+
+def tolerant_load(trainer, path: str) -> tuple[list[str], list[str]]:
+    """Non-strict load: leaves the checkpoint lacks (or holds at another
+    shape) keep their current values, leaves it has beyond the state are
+    dropped; both are printed and returned (missing, unexpected)."""
+    merged, missing, unexpected = tolerant_merge(
+        state_tree(trainer.state), read_checkpoint(path))
+    _apply_tree(trainer.state, merged)
+    if missing:
+        print(f"[load_checkpoint] missing keys kept at current values: "
+              f"{missing}")
+    if unexpected:
+        print(f"[load_checkpoint] unexpected keys ignored: {unexpected}")
+    return missing, unexpected
+
+
+def resume(trainer, ckpt: str = "latest",
+           workspace: str | None = None) -> str:
+    """The reference's resume modes, on any trainer with ``state``,
+    ``load_checkpoint`` and ``workspace``:
+
+      'scratch'      -- no load
+      'latest'       -- the newest rotating checkpoint, the whole state
+      'latest_model' -- the newest rotating checkpoint's params only (the
+                        optimizer, EMA, step and grid stay as they are)
+      'best'         -- the best checkpoint (else as 'latest')
+      <path>         -- that checkpoint directory, the whole state
+
+    Returns what was loaded."""
+    ws = workspace or getattr(trainer, "workspace", None)
+    if ckpt == "scratch":
+        return "scratch (no checkpoint loaded)"
+    if ckpt in ("latest", "latest_model"):
+        path = latest_checkpoint(ws) if ws else None
+        if path is None:
+            return "scratch (no latest checkpoint found)"
+        if ckpt == "latest_model":
+            params = read_checkpoint(path).get("params")
+            if params is None:
+                return f"scratch (no params in {path})"
+            missing, unexpected = trainer.load_params(params)
+            if missing or unexpected:
+                print(f"[resume latest_model] missing={missing} "
+                      f"unexpected={unexpected}")
+            return f"model weights from {path}"
+        trainer.load_checkpoint(path)
+        return f"full state from {path}"
+    if ckpt == "best":
+        path = best_checkpoint(ws) if ws else None
+        if path is None:
+            return resume(trainer, "latest", workspace=ws) + \
+                " (no best checkpoint, fell back to latest)"
+        trainer.load_checkpoint(path)
+        return f"best checkpoint from {path}"
+    trainer.load_checkpoint(ckpt)
+    return f"full state from {ckpt}"
+
+
+def save_rotating(trainer, workspace: str, *, max_keep: int = 2,
+                  prefix: str = "ckpt") -> str:
+    """Write ``{workspace}/checkpoints/{prefix}_{step:08d}`` and remove all
+    but the newest ``max_keep``."""
+    root = os.path.join(workspace, "checkpoints")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"{prefix}_{trainer.state.step:08d}")
+    trainer.save_checkpoint(path)
+    kept = sorted(d for d in os.listdir(root) if d.startswith(prefix + "_"))
+    for stale in kept[:-max_keep]:
+        shutil.rmtree(os.path.join(root, stale), ignore_errors=True)
+    return path
+
+
+def latest_checkpoint(workspace: str, prefix: str = "ckpt") -> str | None:
+    root = os.path.join(workspace, "checkpoints")
+    if not os.path.isdir(root):
+        return None
+    kept = sorted(d for d in os.listdir(root) if d.startswith(prefix + "_"))
+    return os.path.join(root, kept[-1]) if kept else None
+
+
+def save_best(trainer, metric: float, workspace: str, *,
+              mode: str = "max") -> bool:
+    """Save ``{workspace}/checkpoints/best`` when ``metric`` improves on
+    the one ``best.json`` records ('max' or 'min'), with the EMA as its
+    params (the reference saves EMA-swapped weights); update
+    ``best.json``.  Returns whether it saved."""
+    root = os.path.join(workspace, "checkpoints")
+    os.makedirs(root, exist_ok=True)
+    meta_path = os.path.join(root, "best.json")
+    prev = None
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            prev = json.load(f).get("metric")
+    improved = (prev is None
+                or (metric > prev if mode == "max" else metric < prev))
+    if not improved:
+        return False
+    save_checkpoint(trainer.state, os.path.join(root, "best"),
+                    ema_as_params=True)
+    with open(meta_path, "w") as f:
+        json.dump({"metric": float(metric), "step": int(trainer.state.step),
+                   "mode": mode}, f)
+    return True
+
+
+def best_checkpoint(workspace: str) -> str | None:
+    path = os.path.join(workspace, "checkpoints", "best")
+    return path if os.path.isdir(path) else None

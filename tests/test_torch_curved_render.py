@@ -282,7 +282,8 @@ def test_unported_paths_raise(trainers):
     finally:
         tt.rcfg = rcfg
     tcfg = tt.tcfg
-    tt.tcfg = dataclasses.replace(tcfg, distillation=True)
+    # distillation is ported; progressive vertex levels are not
+    tt.tcfg = dataclasses.replace(tcfg, iters_per_level=100)
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.train(1)

@@ -206,8 +206,13 @@ def test_regulariser_switches(setup):
     off = dataclasses.replace(ct.field, clustering=False, prob_model=False)
     assert tmf.clustering_loss(pt["field"], off, 1) == 0.0
     assert tmf.kl_loss(pt["field"], off) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcf.regular_loss(pt, ct, 0, optimize_camera_loss=torch.zeros(()))
+    # the camera term: 1e4 x the camera loss up to step 2000, 1e2 after
+    # (tests/test_torch_training_features.py holds it against JAX)
+    cam = torch.tensor(0.5)
+    base = tcf.regular_loss(pt, ct, 0, level=1)
+    for step, weight in ((0, 1e4), (2000, 1e4), (2001, 1e2)):
+        _rel(tcf.regular_loss(pt, ct, step, optimize_camera_loss=cam,
+                              level=1) - base, weight * 0.5, 1e-6)
     # without the Lipschitz net only the field's term is left
     no_lip = dataclasses.replace(ct, field=dataclasses.replace(ct.field,
                                                                lip=False))
@@ -525,12 +530,19 @@ def test_train_loop_and_unported_features(setup):
     assert len(out["losses"]) == 9 and np.isfinite(out["losses"]).all()
     assert out["loss"] == out["losses"][-1]
     assert int(tt.state.occ.iter_density) == 2 and tt.state.step == 9
+    # the training features run (distillation without a teacher trains
+    # plain steps, as in the JAX trainer); progressive levels raise
     for change in (dict(distillation=True), dict(optimize_camera=True),
-                   dict(optimize_gamma=True), dict(error_map=True),
-                   dict(iters_per_level=100)):
-        tt.tcfg = dataclasses.replace(setup["tt_cfg"], **change)
-        with pytest.raises(NotImplementedError, match="item 11.4"):
-            tt.train(1)
+                   dict(optimize_gamma=True), dict(error_map=True)):
+        tf = tct.CurvedTrainer(
+            tsyn.SyntheticSphereDataset(n_frames=4, H=HW, W=HW),
+            setup["st"], ct, rt,
+            dataclasses.replace(setup["tt_cfg"], **change), device="cpu",
+            seed=5)
+        assert np.isfinite(tf.train(1)["loss"]), change
+    tt.tcfg = dataclasses.replace(setup["tt_cfg"], iters_per_level=100)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tt.train(1)
     tt.tcfg = setup["tt_cfg"]
     # params replaced without their optimizer would train stale tensors
     tt.state.params = params_from_jax(setup["p"], device="cpu")

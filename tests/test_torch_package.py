@@ -103,6 +103,46 @@ def test_surface_modules_and_cli_import_no_jax():
     assert res.stdout.split()[-1] == "cuda", res.stdout
 
 
+_IMPORT_CLIS = """
+import sys
+import main_nerf_torch, main_torch
+import nerf_texture_tpu_torch.config
+import nerf_texture_tpu_torch.data.provider
+import nerf_texture_tpu_torch.data.images
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "nerf_texture_tpu" or m.startswith("nerf_texture_tpu."))
+assert not bad, bad
+print(main_nerf_torch.parse_args(["s"]).device,
+      main_torch.parse_args(["s"]).device)
+"""
+
+
+def test_training_clis_import_no_jax_and_need_the_card(tmp_path):
+    """The two training CLIs and the new modules import no JAX; --device
+    defaults to the card, and on a host without one a run raises before
+    it trains or writes a checkpoint (nothing falls back to the CPU)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _IMPORT_CLIS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["cuda", "cuda"], res.stdout
+    if torch.cuda.is_available():
+        return
+    synthetic.SyntheticSphereDataset(n_frames=3, H=16, W=16).write_to_disk(
+        str(tmp_path / "scene"))
+    for cli in ("main_nerf_torch.py", "main_torch.py"):
+        ws = tmp_path / f"ws_{cli}"
+        res = subprocess.run(
+            [sys.executable, str(REPO / cli), str(tmp_path / "scene"),
+             "--workspace", str(ws), "--iters", "2"], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0, (cli, res.stdout)
+        assert "CUDA" in res.stderr or "cuda" in res.stderr, res.stderr
+        assert not (ws / "checkpoints").exists()
+
+
 @pytest.mark.parametrize("ours,theirs", [
     (RenderConfig, JaxRenderConfig), (NGPConfig, JaxNGPConfig),
     (PackedGridSpec, JaxPackedGridSpec), (TrainConfig, JaxTrainConfig),
@@ -204,9 +244,15 @@ def test_ray_sampling_and_psnr():
     assert coarse is None and inds.dtype == torch.int64
     assert int(inds.min()) == 0 and int(inds.max()) == 79
     assert len(torch.unique(inds)) == 80
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # with an error map: n distinct cells of the 128 x 128 map, a pixel
+    # in each (tests/test_torch_training_features.py holds it to JAX)
+    inds, coarse = sample_ray_indices(torch.Generator().manual_seed(0), 8,
+                                      10, 40, error_map=torch.ones(128 * 128))
+    assert len(torch.unique(coarse)) == 40
+    assert int(inds.min()) >= 0 and int(inds.max()) <= 79
+    with pytest.raises(ValueError, match="error map"):
         sample_ray_indices(torch.Generator(), 8, 10, 4,
-                           error_map=np.ones(16))
+                           error_map=torch.ones(16))
     rng = np.random.default_rng(1)
     a, b = rng.uniform(size=(2, 6, 5, 3)).astype(np.float32)
     assert psnr(torch.from_numpy(a), b) == jax_psnr(a, b)
