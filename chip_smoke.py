@@ -18,9 +18,17 @@ pipelines on that trained field: the flat one (patch export, quilting,
 the 'field' and 'patch' imports) and the synthesis onto another mesh
 with the 'shape' and 'unhash' imports (``field_io``); then the two
 training CLIs on a scene directory (``main_nerf_torch.py``,
-``main_torch.py``).
-Phases, in order; any failure ends the run with a non-zero exit and no
-result line:
+``main_torch.py``); then relighting (the SG and Envmap light models,
+imported environments, the light modes and rotation) and the vertex
+encoder with its progressive levels.
+Phases, run in the order 1-6, 14, 7-10, then 11-13 and 15 at once: after
+phase 10 the CLIs of phases 13 and 15 start as subprocesses and the rest
+of phase 15 as a worker process (``chip_smoke.py --worker relight``),
+all on the same card beside phases 11-13 of this process, which then
+reads their results (their walls and rates are taken under that load,
+and phase 14's kernel times before any of it).  Any failure ends the
+run with a non-zero exit and no result line, and stops every process
+it started:
 
   1. device:  a CUDA card is required (there is no CPU path); prints the
               card's name and power limit as nvidia-smi gives them;
@@ -104,11 +112,12 @@ result line:
               them, on a scene directory (main.py's synthetic sphere, 24
               frames 400x400, written as PNGs to build/cli/scene):
               ``main_nerf_torch.py --save_mesh`` (1500 steps), then
-              ``main_torch.py --distillation`` (400 steps; the
+              ``main_torch.py --distillation`` (200 steps; the
               scene-directory preset, so camera optimisation is on) and
-              its resume to 600 steps, and ``main_torch.py`` without
-              distillation in a workspace of its own (700 steps), as
-              subprocesses (their logs in chiprun_out/cli_*.log): exit
+              its resume to 300 steps, and ``main_torch.py`` without
+              distillation in a workspace of its own (700 steps, beside
+              the distilled run and its resume), as subprocesses (their
+              logs in chiprun_out/cli_*.log): exit
               codes, the PSNR and template lines, the mesh, the
               checkpoints and their steps, finite camera deltas, their
               eval frames through proxy_select; the distilled checkpoint
@@ -123,14 +132,40 @@ result line:
               written between launches, and warm with sig just written),
               against its bound and beside a copy_ of the same bytes,
               and its wrapper's host time a call, at [16384, 24] CDF cap
-              5 and cap 4 and top-k cap 8.
+              5 and cap 4 and top-k cap 8;
+ 15. relight and vertex: at the bench's curved width, the SG and the
+              Envmap light models (``light_model``) each trained 700
+              steps from seeded weights: it/s, peak memory, the live
+              800x800 frame through proxy_select_cdf equal bit for bit to
+              its plain-selection frame, PSNR at the novel pose gated at
+              3 dB above the step-0 frame, the Specular / Diffuse /
+              Albedo frames and a rotated light; imported environments
+              (a 64x128 equirect PNG of an analytic sky): on phase 10's
+              trained SH field ``load_envmap`` with visibility probes, a
+              relit frame, ``clear_envmap`` back to the learned frame bit
+              for bit (this part runs right after phase 10, before phase
+              11 imports a texture into that field); ``load_envmap`` on
+              the Envmap arm; the SG arm relit with ``envmap_to_sg``'s
+              lobes; the vertex encoder (``encoder_type='vertex'``, 3
+              levels 4096 -> 128^2 vertices, a level every 32 steps) over
+              96 steps: the feature-mesh vertex counts, s a step, s a
+              refresh, its live frame through the kernel; 64x64 SG,
+              Envmap and vertex frames on the card vs the CPU port;
+              ``main_torch.py --light_model SG`` and ``--encoder vertex``
+              at once on phase 13's scene (logs in chiprun_out/cli_sg.log,
+              cli_vertex.log).  All but the SH import run in the worker
+              process (its output in chiprun_out/relight_worker.log and
+              .err; this process prints its lines).
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
 (nvcc) and no network; the kernel build goes to build/kernels/, the
 texture files to build/texture/, the surface files to build/surfaces/,
-the CLIs' scene and workspace to build/cli/.  ``--only entry_points``
-runs phases 1, 2 and 13 alone and prints no result lines.
+the CLIs' scene and workspace to build/cli/, phase 15's sky and CLI
+workspaces to build/relight/.  ``--only entry_points`` runs phases 1, 2
+and 13 alone, ``--only relight`` phases 1, 2 and 15 in this process
+(with an SH arm of its own for the imports, and the CLIs on a scene and
+template written for them); neither prints result lines.
 """
 
 from __future__ import annotations
@@ -139,8 +174,10 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -429,19 +466,25 @@ def check_twin(name, img_k, img_p, card):
           f"max abs {t_err}, share off {t_off}")
 
 
+# seconds spent under torch.profiler (the profiled calls and the trace
+# export), reported beside the phase walls
+PROFILE_S = [0.0]
+
+
 def kernel_events(fn, cats=("kernel",)):
     """(name, device us) of every CUDA kernel that one call of fn runs,
     under torch.profiler, from the trace's ``cat == "kernel"`` events
     (annotation rows would count a kernel twice); ``cats`` may add
-    "gpu_memcpy" for copies."""
+    "gpu_memcpy" for copies.  The device activity alone: the host ops'
+    events would only slow the call and the trace's export."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -449,6 +492,7 @@ def kernel_events(fn, cats=("kernel",)):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    PROFILE_S[0] += time.perf_counter() - t0
     return [(e.get("name", ""), float(e.get("dur", 0.0))) for e in events
             if e.get("cat") in cats]
 
@@ -779,12 +823,14 @@ def op_shares(fn, top: int = 8):
     device time over one call of fn (torch.profiler's key_averages)."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    PROFILE_S[0] += time.perf_counter() - t0
     rows = [(k, t) for k, t in rows if t > 0 and k.startswith("aten::")]
     total = sum(t for _, t in rows) or 1.0
     return [(k[6:], t / total) for k, t in sorted(rows, key=lambda r: -r[1])
@@ -1550,11 +1596,11 @@ def ngp_mesh(trainer, mcfg, dev, card: str):
 # --distillation and its resume, as a user runs them; the scene is
 # main.py's synthetic sphere (24 frames, 400x400) written as PNGs
 CLI_DIR = os.path.join("build", "cli")
-# (steps cut to fit the smoke's time: the distilled run 700 -> 400 and
-# its resume 1000 -> 600; the NGP runs 1500, where its eval passes the
-# gate: 23.94-24.04 dB at 1000 steps)
+# (steps cut to fit the smoke's time: the distilled run 700 -> 200 and
+# its resume 1000 -> 300, 400 and 600 until phase 15 came; the NGP runs
+# 1500, where its eval passes the gate: 23.94-24.04 dB at 1000 steps)
 CLI_NGP_ITERS, CLI_NGP_EVAL = 1500, 750
-CLI_CURVED_ITERS, CLI_CURVED_EVAL, CLI_RESUME_ITERS = 400, 200, 600
+CLI_CURVED_ITERS, CLI_CURVED_EVAL, CLI_RESUME_ITERS = 200, 100, 300
 # with --distillation three quarters of the steps are distilled and the
 # curved eval stays near an empty frame's PSNR (14.65-14.91 dB after
 # 1000 steps; the JAX package loses as much to distillation on the CPU),
@@ -1571,22 +1617,69 @@ RECOVERY_TURN = 0.05
 RECOVERY_MAX_RESIDUAL = 0.7
 
 
-def run_cli(args: list[str], name: str, timeout: float = 600) -> str:
-    """Run a CLI of the repo as a subprocess; its output goes to
-    chiprun_out/<name>.log as well.  Fails on a non-zero exit."""
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable] + args, capture_output=True,
-                       text=True, timeout=timeout,
-                       env={**os.environ, "PYTHONUNBUFFERED": "1"})
-    wall = time.perf_counter() - t0
+# every subprocess the smoke starts, so that a failed phase stops them all
+CHILDREN: list = []
+
+
+class Background:
+    """``fn()`` on a thread beside the smoke's phases; ``result()`` joins
+    it and raises what it raised."""
+
+    def __init__(self, fn):
+        self._out, self._err = None, None
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out = fn()
+        except BaseException as e:          # re-raised by result()
+            self._err = e
+
+    def result(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+        return self._out
+
+
+def cli_run(args: list[str], name: str, timeout: float = 900) -> tuple:
+    """Run a CLI of the repo as a subprocess, its output (stdout and
+    stderr) in chiprun_out/<name>.log; returns (exit code, output, wall
+    s).  Safe on a Background thread: it checks nothing."""
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", f"{name}.log"), "w") as f:
-        f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
-    check(r.returncode == 0, f"{name}: exit {r.returncode}: "
-          f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
-    print(f"entry points: {name}: {' '.join(args[:1])} exit 0 in "
-          f"{wall:.1f} s")
-    return r.stdout
+    path = os.path.join("chiprun_out", f"{name}.log")
+    t0 = time.perf_counter()
+    with open(path, "w") as log:
+        proc = subprocess.Popen([sys.executable] + args, stdout=log,
+                                stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+        CHILDREN.append(proc)
+        try:
+            code = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            code = f"killed after {timeout} s"
+    with open(path) as f:
+        return code, f.read(), time.perf_counter() - t0
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def cli_output(runs: dict, name: str, what: str = "entry points") -> str:
+    """The output of the finished run ``name``; fails unless it exited 0."""
+    check(name in runs, f"{name} did not run (an earlier CLI failed)")
+    code, out, wall = runs[name]
+    check(code == 0, f"{name}: exit {code}: {out[-3000:]}")
+    print(f"{what}: {name}: exit 0 in {wall:.1f} s")
+    return out
 
 
 def _lines(out: str, prefix: str) -> list[str]:
@@ -1675,16 +1768,75 @@ def camera_recovery(dev, card: str) -> float:
     return after / before
 
 
-def entry_points_phase(dev, card: str) -> dict:
-    """Phase 13: the two training CLIs on a scene directory, the resume,
-    the checkpoint rendered in this process through both selections, and
-    the staged camera recovery."""
+def start_clis(relight: bool = True, entry: bool = True) -> dict:
+    """Writes phase 13's scene directory and starts, on Background
+    threads, phase 13's CLI chain (``entry``) and phase 15's two CLIs
+    (``relight``); the phases read their results later."""
     import shutil
 
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    scene = os.path.join(CLI_DIR, "scene")
+    t0 = time.perf_counter()
+    SyntheticSphereDataset(n_frames=24, H=400, W=400).write_to_disk(scene)
+    print(f"entry points: scene written in {time.perf_counter() - t0:.2f} "
+          f"s (24 frames 400x400 PNG); the CLIs start")
+    return {"entry": Background(entry_point_clis) if entry else None,
+            "relight": Background(relight_cli_runs) if relight else None}
+
+
+def entry_point_clis() -> dict:
+    """Phase 13's CLIs: ``main_nerf_torch.py --save_mesh``, then
+    ``main_torch.py --distillation`` and its resume beside the
+    undistilled ``main_torch.py`` (both need the NGP's mesh, the
+    distilled run its checkpoint too).  Returns {name: cli_run's tuple}
+    up to the first failure."""
+    import shutil
+
+    from nerf_texture_tpu_torch.config import get_preset
+    from nerf_texture_tpu_torch.train import trainer as ckpt
+
+    scene, ws = os.path.join(CLI_DIR, "scene"), os.path.join(CLI_DIR, "ws")
+    runs = {"cli_ngp": cli_run(
+        ["main_nerf_torch.py", scene, "--workspace", ws, "--iters",
+         str(CLI_NGP_ITERS), "--eval_interval", str(CLI_NGP_EVAL),
+         "--save_mesh"], "cli_ngp")}
+    if runs["cli_ngp"][0] != 0:
+        return runs
+    ws_plain = os.path.join(CLI_DIR, "ws_plain")
+    shutil.copytree(os.path.join(ws, "meshes"),
+                    os.path.join(ws_plain, "meshes"))
+    plain = Background(lambda: cli_run(
+        ["main_torch.py", scene, "--workspace", ws_plain, "--eval_interval",
+         str(CLI_PLAIN_EVAL), "--iters", str(CLI_PLAIN_ITERS)],
+        "cli_curved_plain"))
+    curved_args = ["main_torch.py", scene, "--workspace", ws,
+                   "--eval_interval", str(CLI_CURVED_EVAL), "--distillation"]
+    runs["cli_curved"] = cli_run(
+        curved_args + ["--iters", str(CLI_CURVED_ITERS)], "cli_curved")
+    if runs["cli_curved"][0] == 0:
+        # the distilled run's checkpoint, before the resume overwrites it
+        raw = ckpt.read_checkpoint(os.path.join(
+            ws, "checkpoints", get_preset(scene).field_name))
+        runs["distilled_checkpoint"] = {"step": int(raw["step"]),
+                                        "camera": raw["params"]["camera"]}
+        del raw
+        runs["cli_curved_resume"] = cli_run(
+            curved_args + ["--iters", str(CLI_RESUME_ITERS)],
+            "cli_curved_resume")
+    runs["cli_curved_plain"] = plain.result()
+    return runs
+
+
+def entry_points_phase(dev, card: str, clis: Background) -> dict:
+    """Phase 13: the two training CLIs on a scene directory and the
+    resume (``clis``, started by start_clis), the checkpoint rendered in
+    this process through both selections, and the staged camera
+    recovery."""
     import main_torch
     from nerf_texture_tpu_torch.config import get_preset
     from nerf_texture_tpu_torch.data.provider import NeRFDataset
-    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
     from nerf_texture_tpu_torch.geometry.projector import MeshProjector
     from nerf_texture_tpu_torch.models import mesh_field
     from nerf_texture_tpu_torch.ops.proxy_select import proxy_select
@@ -1693,18 +1845,18 @@ def entry_points_phase(dev, card: str) -> dict:
     from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
     scene, ws = os.path.join(CLI_DIR, "scene"), os.path.join(CLI_DIR, "ws")
-    t0 = time.perf_counter()
-    SyntheticSphereDataset(n_frames=24, H=400, W=400).write_to_disk(scene)
-    print(f"entry points: scene written in {time.perf_counter() - t0:.2f} "
-          f"s (24 frames 400x400 PNG)")
     launches = {}
 
+    # -- the staged camera recovery, while the CLIs may still run -------------
+    ratio = camera_recovery(dev, card)
+    t0 = time.perf_counter()
+    runs = clis.result()
+    print(f"entry points: waited {time.perf_counter() - t0:.1f} s for the "
+          f"CLIs")
+
     # -- main_nerf_torch.py --save_mesh ---------------------------------------
-    out = run_cli(["main_nerf_torch.py", scene, "--workspace", ws,
-                   "--iters", str(CLI_NGP_ITERS), "--eval_interval",
-                   str(CLI_NGP_EVAL), "--save_mesh"], "cli_ngp")
+    out = cli_output(runs, "cli_ngp")
     for ln in (_lines(out, "setup:") + _lines(out, "[")
                + _lines(out, "timing:") + _lines(out, "checkpoint:")
                + _lines(out, "mesh:")):
@@ -1724,10 +1876,7 @@ def entry_points_phase(dev, card: str) -> dict:
           "the NGP CLI's eval frames never launched proxy_select")
 
     # -- main_torch.py --distillation, then its resume ------------------------
-    curved_args = ["main_torch.py", scene, "--workspace", ws,
-                   "--eval_interval", str(CLI_CURVED_EVAL), "--distillation"]
-    out = run_cli(curved_args + ["--iters", str(CLI_CURVED_ITERS)],
-                  "cli_curved")
+    out = cli_output(runs, "cli_curved")
     for ln in (_lines(out, "template:") + _lines(out, "setup:")
                + _lines(out, "[") + _lines(out, "timing:")
                + _lines(out, "checkpoint:")):
@@ -1740,9 +1889,9 @@ def entry_points_phase(dev, card: str) -> dict:
           f"curved CLI eval lines {evals}")
     cfg = get_preset(scene)
     ck_dir = os.path.join(ws, "checkpoints", cfg.field_name)
-    raw = ckpt.read_checkpoint(ck_dir)
-    check(int(raw["step"]) == CLI_CURVED_ITERS, "curved checkpoint step")
-    cam = raw["params"]["camera"]
+    raw = runs["distilled_checkpoint"]
+    check(raw["step"] == CLI_CURVED_ITERS, "curved checkpoint step")
+    cam = raw["camera"]
     check(all(bool(torch.isfinite(v).all()) for v in cam.values()),
           "non-finite camera deltas")
     print(f"entry points: camera deltas after {CLI_CURVED_ITERS} steps: max "
@@ -1750,8 +1899,7 @@ def entry_points_phase(dev, card: str) -> dict:
           f"{float(cam['dts'].abs().max()):.3g}, |dfs| "
           f"{float(cam['dfs'].abs().max()):.3g} px")
     n_curved = _select_launches(out)[0]
-    out = run_cli(curved_args + ["--iters", str(CLI_RESUME_ITERS)],
-                  "cli_curved_resume")
+    out = cli_output(runs, "cli_curved_resume")
     for ln in (_lines(out, "checkpoint:") + _lines(out, "[")
                + _lines(out, "timing:")):
         print(f"  curved resume: {ln}")
@@ -1768,12 +1916,7 @@ def entry_points_phase(dev, card: str) -> dict:
           "the curved CLI's eval frames never launched proxy_select")
 
     # -- main_torch.py without distillation, in a workspace of its own --------
-    ws_plain = os.path.join(CLI_DIR, "ws_plain")
-    shutil.copytree(os.path.join(ws, "meshes"),
-                    os.path.join(ws_plain, "meshes"))
-    out = run_cli(["main_torch.py", scene, "--workspace", ws_plain,
-                   "--eval_interval", str(CLI_PLAIN_EVAL), "--iters",
-                   str(CLI_PLAIN_ITERS)], "cli_curved_plain")
+    out = cli_output(runs, "cli_curved_plain")
     for ln in (_lines(out, "setup:") + _lines(out, "[")
                + _lines(out, "timing:")):
         print(f"  curved plain: {ln}")
@@ -1828,9 +1971,6 @@ def entry_points_phase(dev, card: str) -> dict:
     del tr
     torch.cuda.empty_cache()
 
-    # -- the staged camera recovery -------------------------------------------
-    ratio = camera_recovery(dev, card)
-
     print(f"entry points: NGP CLI PSNR {ngp_psnr:.2f} dB after "
           f"{CLI_NGP_ITERS} steps; curved CLI PSNR {curved_psnr:.2f} dB "
           f"after {CLI_PLAIN_ITERS} steps (gates >= {CLI_PSNR_MIN}); with "
@@ -1839,6 +1979,509 @@ def entry_points_phase(dev, card: str) -> dict:
     check(ngp_psnr >= CLI_PSNR_MIN, f"NGP CLI PSNR {ngp_psnr}")
     check(curved_psnr >= CLI_PSNR_MIN, f"curved CLI PSNR {curved_psnr}")
     return launches
+
+
+# the relighting and vertex-encoder phase (15) at the bench's curved
+# width (bench.py:340-367): the SG and Envmap arms at CurvedFieldConfig's
+# own num_lgt_sgs 8 and env_res 16, bench.py's 700 steps each, gated at
+# RELIGHT_GAIN dB above the arm's step-0 frame at the novel pose (no JAX
+# cell exists for these lights; the CPU lockstep tests carry parity); an
+# imported environment, a 64x128 equirect PNG of an analytic sky; the
+# vertex arm at the reference's progressive schedule (3 levels, 4096 ->
+# 128^2 vertices) with iters_per_level cut from the reference's to 32
+# (64 at first; cut again for the smoke's time), so that
+# VERTEX_STEPS cross two level advances; the CLIs on phase 13's
+# scene at a cut --iters, each with main.py's template of the synthetic
+# sphere, an icosphere (phase 13's remeshed NGP template of ~98k vertices
+# would add ~25 s of host set-up a run)
+RELIGHT_DIR = os.path.join("build", "relight")
+RELIGHT_STEPS, RELIGHT_GAIN = 700, 3.0
+SKY_H, SKY_W = 64, 128
+VERTEX_FIELD = dict(encoder_type="vertex", level_num=3, base_vnum=4096,
+                    target_vnum=128 ** 2)
+VERTEX_ITERS_PER_LEVEL, VERTEX_STEPS = 32, 96
+CLI_SG_ITERS, CLI_VERTEX_ITERS = 50, 20
+# the narrow card-vs-CPU frames of phase 15: SMALL_FIELD over
+# make_icosphere(2, 0.5), the SG light at 4 lobes, the Envmap light at an
+# 8x8 grid, the vertex encoder on the template subdivided to >= 600
+# vertices (642), 4 features of 2 bands
+SMALL_RELIGHT = {"SG": dict(light_model="SG", num_lgt_sgs=4),
+                 "Envmap": dict(light_model="Envmap", env_res=8),
+                 "vertex": dict(light_model="SH")}
+SMALL_VERTEX = dict(encoder_type="vertex", feature_dim=4, vertex_multires=2,
+                    base_vnum=600, target_vnum=600)
+
+
+def sky_png(path: str):
+    """A 64x128 equirect sky (a warm sun over a blue-grey dome and a dark
+    ground) written as an 8-bit PNG."""
+    from nerf_texture_tpu_torch.data.images import write_png
+
+    th = (np.arange(SKY_H) + 0.5) / SKY_H * np.pi
+    ph = (np.arange(SKY_W) + 0.5) / SKY_W * 2 * np.pi
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    sun = np.exp(-((tt - 0.7) ** 2 + (pp - 2.0) ** 2) * 6.0)
+    dome = 0.15 + 0.55 * np.clip(np.cos(tt), 0, 1)
+    img = np.clip(np.stack([dome + sun, dome + 0.8 * sun,
+                            1.2 * dome + 0.4 * sun], -1), 0, 1)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_png(path, (img * 255).astype(np.uint8))
+    return path
+
+
+def relit_frame(tr, pose, name: str, card: str, reference=None) -> dict:
+    """One 800x800 live frame of ``tr`` through proxy_select_cdf: launches
+    == chunks, the frame checks, equal bit for bit to its plain-selection
+    frame (and, given ``reference``, different from it)."""
+    from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
+
+    torch.cuda.synchronize()
+    proxy_select_cdf.launches = 0
+    t0 = time.perf_counter()
+    out = tr.render_frame(pose, use_ema=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = proxy_select_cdf.launches
+    check(launches > 0 and launches == out["chunks"],
+          f"{name}: {launches} kernel launches for {out['chunks']} chunks")
+    frame_checks(out, tr.H, tr.W, name)
+    plain = tr.render_frame(pose, use_ema=False, plain_select=True)
+    check(torch.equal(out["image"], plain["image"]),
+          f"{name}: the kernel frame differs from the plain-selection frame")
+    if reference is not None:
+        diff = float((out["image"] - reference).abs().max())
+        check(diff > 1e-2, f"{name}: the frame did not change ({diff})")
+    print(f"{name}: {tr.H}x{tr.W} frame {ms:.1f} ms, {out['chunks']} chunks "
+          f"= proxy_select_cdf launches, live rays {out['live']}; kernel "
+          f"frame == plain-selection frame bit for bit ({card})")
+    return {"out": out, "launches": launches, "ms": ms}
+
+
+def relight_arm(dev, card: str, ds, light: str, field_state, share=None):
+    """The SG or Envmap arm at the bench's curved width: 700 steps from
+    seeded weights, the live frame at the novel pose (PSNR gated at
+    RELIGHT_GAIN dB above the step-0 frame), the light modes and a
+    rotated light.  Returns (trainer, launches of its frames)."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    ccfg = CurvedFieldConfig(field=MeshFieldConfig(), light_model=light)
+    tr = CurvedTrainer(ds, field_state, ccfg, RenderConfig(**CURVED_RENDER),
+                       CurvedTrainConfig(**CURVED_TRAIN), seed=7, device=dev)
+    if share is not None:                  # the same template and grid
+        tr._anchor_tab, tr._near_cells = share._anchor_tab, share._near_cells
+    name = f"relight {light}"
+    npose = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    gt = white_gt(ds, npose)
+    tr.initialize_states(1)
+    psnr0 = psnr_of(tr.render_frame(npose, use_ema=False)["image"], gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = tr.train(RELIGHT_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = np.asarray(run["losses"])
+    check(bool(np.isfinite(losses).all()), f"{name}: non-finite loss")
+    tr.render_frame(ds.poses[0], use_ema=False)                # warm-up
+    walls, outs, launches, chunks = timed_frames(
+        lambda p: tr.render_frame(p, use_ema=False),
+        [npose] + [ds.poses[1 + i] for i in range(3)])
+    check(launches > 0 and launches == chunks,
+          f"{name}: {launches} kernel launches for {chunks} chunks")
+    for o in outs:
+        frame_checks(o, ds.H, ds.W, name)
+    live = relit_frame(tr, npose, f"{name} live", card)
+    launches += live["launches"]
+    psnr_t = psnr_of(live["out"]["image"], gt)
+    modes = {}
+    for mode in ("Specular", "Diffuse", "Albedo"):
+        tr.light_visual_mode = mode
+        img = tr.render_frame(npose, use_ema=False)["image"]
+        check(bool(torch.isfinite(img).all()), f"{name} {mode}: non-finite")
+        modes[mode] = float(img.mean())
+    tr.light_visual_mode = "Full"
+    tr.euler = [0.4, -0.3, 0.2]
+    img = tr.render_frame(npose, use_ema=False)["image"]
+    tr.euler = None
+    check(bool(torch.isfinite(img).all()), f"{name} rotated: non-finite")
+    rot = float((img - live["out"]["image"]).abs().max())
+    print(f"{name}: loss step 1 {losses[0]:.5f}, step {RELIGHT_STEPS} "
+          f"{losses[-1]:.5f}; {RELIGHT_STEPS} steps in {train_s:.2f} s = "
+          f"{RELIGHT_STEPS / train_s:.2f} it/s (refreshes in); peak memory "
+          f"{peak:.1f} MiB ({card})")
+    print(f"{name}: {ds.H}x{ds.W} {', '.join(f'{w:.2f}' for w in walls[1:])} "
+          f"ms/frame over 3 poses; PSNR at the novel pose {psnr_t:.2f} dB "
+          f"(step 0: {psnr0:.2f} dB, gate >= +{RELIGHT_GAIN}); mean of the "
+          f"Specular / Diffuse / Albedo frames "
+          f"{' / '.join(f'{v:.4f}' for v in modes.values())}; rotated light "
+          f"moves the frame by {rot:.3f} ({card})")
+    check(psnr_t >= psnr0 + RELIGHT_GAIN,
+          f"{name}: PSNR {psnr_t:.2f} < step 0 {psnr0:.2f} + {RELIGHT_GAIN}")
+    return tr, launches
+
+
+def vertex_arm(dev, card: str, ds, mp) -> int:
+    """The vertex encoder with its progressive levels at the bench's
+    curved width: VERTEX_STEPS steps over the three levels, the vertex
+    counts at each, s a step and a refresh, the live frame through the
+    kernel, its PSNR (not gated).  Returns the frame's launches."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    fcfg = MeshFieldConfig(**VERTEX_FIELD)
+    vnums = mesh_field.levels_vnum(fcfg)
+    t0 = time.perf_counter()
+    # the template itself (the projector's mesh carries its UV seams)
+    fea = mesh_field.make_feature_projector(make_icosphere(4, radius=0.5),
+                                            vnums[0], device=dev)
+    fea_s = time.perf_counter() - t0
+    fcfg = dataclasses.replace(
+        fcfg, n_feature_vertices=int(fea.arrays.vertices.shape[0]))
+    tr = CurvedTrainer(ds, mesh_field.make_state(mp, fea_projector=fea),
+                       CurvedFieldConfig(field=fcfg, light_model="SH"),
+                       RenderConfig(**CURVED_RENDER),
+                       CurvedTrainConfig(
+                           **CURVED_TRAIN,
+                           iters_per_level=VERTEX_ITERS_PER_LEVEL),
+                       seed=7, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.initialize_states(1)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counts, walls, losses = [], [], []
+    for _ in range(VERTEX_STEPS // VERTEX_ITERS_PER_LEVEL):
+        t0 = time.perf_counter()
+        run = tr.train(VERTEX_ITERS_PER_LEVEL)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((tr.fea_level, tr.ccfg.field.n_feature_vertices))
+        losses += run["losses"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(bool(np.isfinite(losses).all()), "vertex arm: non-finite loss")
+    check([c[0] for c in counts] == [0, 1, 2],
+          f"vertex arm: levels {counts}")
+    check(tr.state.params["field"]["features_v"].shape[0] == counts[-1][1],
+          "vertex arm: the features do not match the feature mesh")
+    npose = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    live = relit_frame(tr, npose, "vertex live", card)
+    vpsnr = psnr_of(live["out"]["image"], white_gt(ds, npose))
+    per_step = [w / VERTEX_ITERS_PER_LEVEL for w in walls]
+    print(f"vertex: schedule {vnums}, feature mesh {counts[0][1]} vertices "
+          f"(built in {fea_s:.2f} s); (level, vertices) after each "
+          f"{VERTEX_ITERS_PER_LEVEL} steps: {counts}; s a step by level "
+          f"{', '.join(f'{s:.3f}' for s in per_step)} (refreshes and level "
+          f"advances in); a refresh {refresh_s:.3f} s; loss step 1 "
+          f"{losses[0]:.5f}, step {len(losses)} {losses[-1]:.5f}; peak "
+          f"memory {peak:.1f} MiB; PSNR at the novel pose {vpsnr:.2f} dB "
+          f"(not gated) ({card})")
+    del tr
+    torch.cuda.empty_cache()
+    return live["launches"]
+
+
+def narrow_relight(ds, dev_i, kind: str, ref=None):
+    """The narrow card-vs-CPU config of phase 15 (SMALL_FIELD over
+    make_icosphere(2, 0.5), 64x64) with the SG or Envmap light or the
+    vertex encoder on ``dev_i``: seeded (the encoder's features and the
+    phi grid scaled, see PHI_SCALE) and refreshed once, or with the
+    params and grid of ``ref``."""
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+
+    mesh = make_icosphere(2, radius=0.5)
+    field = dict(SMALL_FIELD)
+    fea = None
+    if kind == "vertex":
+        fea = mesh_field.make_feature_projector(
+            mesh, SMALL_VERTEX["target_vnum"], device=dev_i)
+        field.update(SMALL_VERTEX, n_feature_vertices=int(
+            fea.arrays.vertices.shape[0]))
+    tr_s = CurvedTrainer(type(ds)(n_frames=2, H=64, W=64),
+                         mesh_field.make_state(MeshProjector(mesh,
+                                                             device=dev_i),
+                                               fea_projector=fea),
+                         CurvedFieldConfig(field=MeshFieldConfig(**field),
+                                           **SMALL_RELIGHT[kind]),
+                         RenderConfig(**SMALL_CURVED_RENDER),
+                         CurvedTrainConfig(**CURVED_TRAIN), seed=0,
+                         device=dev_i)
+    if ref is None:
+        p = tr_s.state.params["field"]
+        with torch.no_grad():
+            if kind != "vertex":
+                p["encoder"][:, :tr_s.ccfg.field.feature_spec.row_width] \
+                    *= TABLE_SCALE
+            p["normal"]["phi_grid"] *= PHI_SCALE
+        tr_s.state.ema_params = tr_s.state.params
+        tr_s.initialize_states(1)
+    else:
+        tr_s.state.params = tree_to(ref.params, dev_i)
+        tr_s.state.ema_params = tr_s.state.params
+        tr_s.state.occ = type(ref.occ)(*(t.to(dev_i) for t in ref.occ))
+    return tr_s
+
+
+# phase 15's CLIs: (log name, flags, --iters, get_preset's keywords)
+RELIGHT_CLIS = (("cli_sg", ["--light_model", "SG"], CLI_SG_ITERS,
+                 dict(light_model="SG")),
+                ("cli_vertex", ["--encoder", "vertex", "--iters_per_level",
+                                str(CLI_VERTEX_ITERS // 2)],
+                 CLI_VERTEX_ITERS, dict(encoder_type="vertex")))
+
+
+def relight_cli_runs() -> dict:
+    """main_torch.py --light_model SG and --encoder vertex on phase 13's
+    scene, each in a workspace of its own holding an icosphere template,
+    the two processes at once.  Returns {name: cli_run's tuple}."""
+    import shutil
+
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere, save_obj
+
+    scene = os.path.join(CLI_DIR, "scene")
+    runs = {}
+    for name, flags, iters, _ in RELIGHT_CLIS:
+        ws = os.path.join(RELIGHT_DIR, name)
+        shutil.rmtree(ws, ignore_errors=True)
+        os.makedirs(os.path.join(ws, "meshes"))
+        save_obj(os.path.join(ws, "meshes", "surface_coacd_remesh.obj"),
+                 make_icosphere(4, radius=0.5))
+        runs[name] = Background(lambda ws=ws, flags=flags, iters=iters,
+                                name=name: cli_run(
+            ["main_torch.py", scene, "--workspace", ws, "--iters",
+             str(iters), "--eval_interval", str(iters)] + flags, name))
+    return {name: run.result() for name, run in runs.items()}
+
+
+WORKER_START = "relight worker: start"
+
+
+def relight_clis(card: str, clis: Background) -> dict:
+    """Phase 15's CLIs (``clis``, started by start_clis): exit 0, a finite
+    PSNR line, a checkpoint.  Returns their eval frames' proxy_select
+    launches."""
+    from nerf_texture_tpu_torch.config import get_preset
+    from nerf_texture_tpu_torch.train import trainer as ckpt
+
+    scene = os.path.join(CLI_DIR, "scene")
+    t0 = time.perf_counter()
+    runs = clis.result()
+    print(f"relight: waited {time.perf_counter() - t0:.1f} s for the CLIs "
+          f"(run at once with each other and beside the phases since "
+          f"their start)")
+    launches = {}
+    for name, _, iters, kw in RELIGHT_CLIS:
+        out = cli_output(runs, name, what="relight")
+        for ln in (_lines(out, "feature mesh:") + _lines(out, "setup:")
+                   + _lines(out, "[") + _lines(out, "timing:")
+                   + _lines(out, "checkpoint:")):
+            print(f"  {name}: {ln}")
+        evals = _evals(out)
+        check(len(evals) == 1 and evals[0][0] == iters
+              and np.isfinite(evals[0][1]) and np.isfinite(evals[0][2]),
+              f"{name}: eval lines {evals}")
+        raw = ckpt.read_checkpoint(os.path.join(
+            RELIGHT_DIR, name, "checkpoints",
+            get_preset(scene, **kw).field_name))
+        check(int(raw["step"]) == iters, f"{name}: checkpoint step")
+        launches[f"relight_{name}_eval"] = _select_launches(out)[0]
+        check(launches[f"relight_{name}_eval"] > 0,
+              f"{name}: the eval frame never launched proxy_select")
+        print(f"relight: {name}: main_torch.py PSNR {evals[0][2]:.2f} dB "
+              f"after {iters} steps ({card})")
+    return launches
+
+
+def relight_sh_import(tr, ds, card: str) -> int:
+    """Phase 15's imported environment on an SH field ``tr`` in mode
+    'none' (phase 10's trained field, before phase 11 imports a texture
+    into it): ``load_envmap`` with visibility probes, the relit frame
+    through the kernel, ``clear_envmap`` back to the learned frame bit
+    for bit.  Returns the relit frame's launches."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+
+    check(tr.mode == "none" and tr.ccfg.light_model == "SH",
+          f"the SH import needs an SH field in mode 'none' ({tr.mode})")
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 shading
+    sky = sky_png(os.path.join(RELIGHT_DIR, "sky.png"))
+    npose = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    learned = tr.render_frame(npose, use_ema=False)["image"]
+    t0 = time.perf_counter()
+    tr.load_envmap(sky, with_visibility=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    li = tr.light_import
+    launches = relit_frame(tr, npose, "relight SH import", card,
+                           reference=learned)["launches"]
+    tr.clear_envmap()
+    again = tr.render_frame(npose, use_ema=False)["image"]
+    check(torch.equal(again, learned),
+          "clear_envmap: the frame differs from the learned frame")
+    print(f"relight: SH load_envmap (with visibility) {load_s:.3f} s: "
+          f"env_import {tuple(li['env_import'].shape)}, env_import_vis "
+          f"{tuple(li['env_import_vis'].shape)}, probes "
+          f"{tuple(li['probes'].shape)}; after clear_envmap the frame equals "
+          f"the learned frame bit for bit ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return launches
+
+
+def relight_phase(dev, card: str, ds, own_sh: bool) -> dict:
+    """Phase 15 but its CLIs: the SG and Envmap arms, imported
+    environments (the SH one on a shorter SH arm of this phase's own
+    when ``own_sh``; the whole smoke runs it on phase 10's field), the
+    vertex arm and the narrow card-vs-CPU frames.  Returns the
+    proxy_select_cdf launches of each path."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.lights import sg as sg_light
+    from nerf_texture_tpu_torch.models.lights import sh as sh_light
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wall0 = time.perf_counter()
+    sky = sky_png(os.path.join(RELIGHT_DIR, "sky.png"))
+    npose = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    cdf = {}
+    mp = MeshProjector(make_icosphere(4, radius=0.5), device=dev)
+    fs = mesh_field.make_state(mp)
+
+    # -- the SG and Envmap arms ----------------------------------------------
+    t0 = time.perf_counter()
+    tr_sg, cdf["relight_sg_live"] = relight_arm(dev, card, ds, "SG", fs)
+    sg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr_env, cdf["relight_envmap_live"] = relight_arm(dev, card, ds, "Envmap",
+                                                     fs, share=tr_sg)
+    env_s = time.perf_counter() - t0
+
+    # -- imported environments ---------------------------------------------
+    if own_sh:
+        tr_sh, _ = relight_arm(dev, card, ds, "SH", fs, share=tr_sg)
+        cdf["relight_sh_import"] = relight_sh_import(tr_sh, ds, card)
+        del tr_sh
+    learned = tr_env.render_frame(npose, use_ema=False)["image"]
+    tr_env.load_envmap(sky)
+    cdf["relight_envmap_import"] = relit_frame(
+        tr_env, npose, "relight Envmap import", card, reference=learned)[
+        "launches"]
+    learned = tr_sg.render_frame(npose, use_ema=False)["image"]
+    t0 = time.perf_counter()
+    lobes = sg_light.envmap_to_sg(
+        sh_light.image_to_envmap(sky, force_white=False), device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lobes).all()), "envmap_to_sg: non-finite")
+    tr_sg.light_import = {"lgt_sgs_import": lobes}
+    cdf["relight_sg_import"] = relit_frame(
+        tr_sg, npose, "relight SG import", card, reference=learned)[
+        "launches"]
+    print(f"relight: envmap_to_sg {tuple(lobes.shape)} lobes (500 Adam "
+          f"steps) in {fit_s:.2f} s ({card})")
+    del tr_sg, tr_env
+    torch.cuda.empty_cache()
+
+    # -- the vertex arm ------------------------------------------------------
+    t0 = time.perf_counter()
+    cdf["vertex_live"] = vertex_arm(dev, card, ds, mp)
+    vertex_s = time.perf_counter() - t0
+
+    # -- narrow frames, card vs CPU -------------------------------------------
+    t0 = time.perf_counter()
+    for kind in SMALL_RELIGHT:
+        cpu = narrow_relight(ds, "cpu", kind)
+        gpu = narrow_relight(ds, dev, kind, ref=cpu.state)
+        pose = orbit_pose(1.2, 0.7, 2.0)
+        a = gpu.render_frame(pose)
+        b = cpu.render_frame(pose)
+        ia, ib = a["image"].cpu().numpy(), b["image"].cpu().numpy()
+        la = a["weights_sum"].cpu().numpy() > 0
+        lb = b["weights_sum"].cpu().numpy() > 0
+        p_s, e_s = psnr(ia, ib), float(np.abs(ia - ib).max())
+        mism = float(np.mean(la != lb))
+        print(f"relight parity: {kind} 64x64 frame card vs CPU: PSNR "
+              f"{p_s:.2f} dB, max abs {e_s:.3g}, live mismatch "
+              f"{mism:.4f} ({int(lb.sum())} live on CPU) ({card})")
+        check(lb.any() and ib[lb].std() > 1e-2,
+              f"the small {kind} frame has no structure")
+        check(p_s >= FRAME_PSNR_MIN and e_s <= FRAME_MAX_ABS
+              and mism <= FRAME_LIVE_MISMATCH,
+              f"{kind} card vs CPU: PSNR {p_s} dB, max abs {e_s}, live "
+              f"mismatch {mism}")
+
+    narrow_s = time.perf_counter() - t0
+    print(f"relight: phase walls: SG arm {sg_s:.1f} s, Envmap arm "
+          f"{env_s:.1f} s, vertex arm {vertex_s:.1f} s, narrow frames "
+          f"{narrow_s:.1f} s; the phase {time.perf_counter() - wall0:.1f} s "
+          f"({card})")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return cdf
+
+
+def start_relight_worker() -> Background:
+    """Phase 15 but its CLIs in a process of its own on the same card
+    (``chip_smoke.py --worker relight``), on a Background thread: its
+    standard output goes to chiprun_out/relight_worker.log, its errors
+    to relight_worker.err.  Returns (exit code, output, errors, wall s)."""
+    def run():
+        os.makedirs("chiprun_out", exist_ok=True)
+        out_p = os.path.join("chiprun_out", "relight_worker.log")
+        err_p = os.path.join("chiprun_out", "relight_worker.err")
+        t0 = time.perf_counter()
+        with open(out_p, "w") as out, open(err_p, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 "relight"], stdout=out, stderr=err, text=True,
+                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+            CHILDREN.append(proc)
+            try:
+                code = proc.wait(timeout=1000)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                code = "killed after 1000 s"
+        with open(out_p) as out, open(err_p) as err:
+            return code, out.read(), err.read(), time.perf_counter() - t0
+    return Background(run)
+
+
+def relight_from_worker(worker: Background) -> dict:
+    """The relight worker's result: fails unless it exited 0; prints its
+    phase-15 lines here and returns the launches of its paths."""
+    t0 = time.perf_counter()
+    code, out, err, wall = worker.result()
+    check(code == 0, f"the relight worker: exit {code}: {out[-2000:]} "
+          f"{err[-3000:]}")
+    lines = out.splitlines()
+    start = lines.index(WORKER_START)
+    for ln in lines[start + 1:-1]:
+        print(ln)
+    print(f"relight: the worker process ran {wall:.1f} s beside phases "
+          f"11-13 and the CLIs; waited {time.perf_counter() - t0:.1f} s "
+          f"for it")
+    return json.loads(lines[-1])["relight_launches"]
 
 
 def tree_to(tree, device):
@@ -1887,6 +2530,8 @@ def main() -> int:
     wall0 = time.perf_counter()
 
     only_entry = sys.argv[1:] == ["--only", "entry_points"]
+    only_relight = sys.argv[1:] == ["--only", "relight"]
+    as_worker = sys.argv[1:] == ["--worker", "relight"]
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1910,10 +2555,37 @@ def main() -> int:
     if only_entry:
         # a shorter run while working on phase 13: the device, the build
         # and that phase only; no result lines
-        entry_points_phase(dev, card)
+        entry_points_phase(dev, card, start_clis(relight=False)["entry"])
         print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 13 "
               f"only ({card})")
         return 0
+    if as_worker:
+        # phase 15 but its CLIs, for the whole smoke, which reads this
+        # output (start_relight_worker)
+        print(WORKER_START)
+        cdf = relight_phase(dev, card, SyntheticSphereDataset(
+            n_frames=8, H=800, W=800), own_sh=False)
+        print(json.dumps({"relight_launches": cdf}))
+        return 0
+    if only_relight:
+        # a shorter run while working on phase 15: the device, the build
+        # and that phase only (its own SH arm for the imports); no result
+        # lines
+        clis = start_clis(entry=False)
+        relight_phase(dev, card, SyntheticSphereDataset(n_frames=8, H=800,
+                                                        W=800), own_sh=True)
+        relight_clis(card, clis["relight"])
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 15 "
+              f"only ({card})")
+        return 0
+
+    phase_walls, lap0 = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Closes the wall of the phases since the last lap."""
+        now = time.perf_counter()
+        phase_walls[name] = now - lap0[0]
+        lap0[0] = now
 
     # -- 3. kernel vs plain version on the card ------------------------------
     max_err = 0.0
@@ -2052,6 +2724,13 @@ def main() -> int:
               f"{err:.3g}, {int(got[2].sum())} kept of {N * cap} slots; "
               f"plain version {plain * 1e3:.2f} us a call ({card})")
 
+    lap("1-6")
+
+    # -- 14. the selection kernels' device time vs their bounds -------------
+    # (here, before any other process shares the card)
+    timed = timing_phase(dev, card)
+    lap("14")
+
     # -- 7. training at full width -------------------------------------------
     # Training multiplies f32 gradients, which TF32 would round: full f32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2091,6 +2770,8 @@ def main() -> int:
           "the training loss did not fall")
     check(occupied > 0, "the occupancy grid is empty after training")
     torch.backends.cuda.matmul.allow_tf32 = True
+
+    lap("7")
 
     # -- 8. the trained field through both selections ------------------------
     rcfg_topk = dataclasses.replace(rcfg, infer_cdf=False, infer_color_cap=8)
@@ -2166,26 +2847,48 @@ def main() -> int:
     del trainer, params_t, prepass_topk, outs
     torch.cuda.empty_cache()
 
+    lap("8")
+
     # -- 9. the curved model's serving path ----------------------------------
     curved = curved_phase(dev, card, ds, timing)
+    lap("9")
 
     # -- 10. curved training, and the trained live, pool and baked frames --
     trained, tr = curved_train_phase(dev, card, ds, timing)
+    lap("10")
+    # phase 15's SH import, on this trained field before phase 11 imports
+    # a texture into it
+    sh_import = relight_sh_import(tr, ds, card)
+    lap("15 SH import")
+
+    # -- from here the CLIs of phases 13 and 15 and the rest of phase 15
+    # (a worker process) run beside phases 11-13 on the same card
+    clis = start_clis()
+    worker = start_relight_worker()
 
     # -- 11. the texture pipeline on the trained field -----------------------
     texture = texture_phase(dev, card, ds, tr)
+    lap("11")
 
     # -- 12. synthesis onto another mesh, and its imports --------------------
     surfaces = surfaces_phase(dev, card, ds, tr, trained["psnr_live"])
+    lap("12")
     del tr
     torch.cuda.empty_cache()
 
     # -- 13. the training entry points on a scene directory ------------------
-    entry = entry_points_phase(dev, card)
+    entry = entry_points_phase(dev, card, clis["entry"])
+    lap("13")
 
-    # -- 14. the selection kernels' device time vs their bounds -------------
-    timed = timing_phase(dev, card)
+    # -- 15. relighting and the vertex encoder --------------------------------
+    relight_cdf = {"relight_sh_import": sh_import,
+                   **relight_from_worker(worker)}
+    relight_topk = relight_clis(card, clis["relight"])
+    lap("15")
 
+    print("smoke: phase walls: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in phase_walls.items())
+        + f"; under torch.profiler {PROFILE_S[0]:.1f} s ({card})")
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
     cdf_paths = {"ngp_serving_slice": slice_launches,
                  "ngp_trained_render": launches["cdf"],
@@ -2193,7 +2896,8 @@ def main() -> int:
                  "curved_trained_live": trained["live"],
                  "curved_baked": trained["baked"],
                  "texture_field": texture["texture_field"],
-                 "texture_patch": texture["texture_patch"], **surfaces}
+                 "texture_patch": texture["texture_patch"], **surfaces,
+                 **relight_cdf}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape
@@ -2232,7 +2936,7 @@ def main() -> int:
                     "nerf_texture_tpu/ops/proxy_select.py:49",
                     {"ngp_trained_render_topk": launches["topk"],
                      "texture_two_round": texture["texture_two_round"],
-                     **entry},
+                     **entry, **relight_topk},
                     topk_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2241,4 +2945,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # a stop from outside ends the subprocesses too (the finally below)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

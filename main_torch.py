@@ -8,12 +8,17 @@ Pipeline:
   2. h_threshold from the scan point cloud (2 x 70th percentile |sdf|),
      where ``W/meshes/pcl.ply`` exists;
   3. curved-field training with the scene's preset (camera optimisation
-     on for a captured scene), ``--distillation`` from the NGP checkpoint.
+     on for a captured scene), ``--distillation`` from the NGP checkpoint,
+     any ``--light_model`` (SH, SG, Envmap, None) and ``--encoder``
+     (hash; vertex, with progressive levels every ``--iters_per_level``
+     steps).
 
 Usage:
   python3 main_torch.py data/star_flower --workspace logs/star_flower
   python3 main_torch.py <scene> --workspace W --distillation
   python3 main_torch.py synthetic_sphere --iters 2000
+  python3 main_torch.py <scene> --light_model SG
+  python3 main_torch.py <scene> --encoder vertex --iters_per_level 1000
   python3 main_torch.py <scene> --device cpu   # tiny scenes only
 
 Trains on the card by default and raises where there is none.  Writes
@@ -160,10 +165,6 @@ def main(argv=None):
     if args.iters_per_level is not None:
         overrides["iters_per_level"] = args.iters_per_level
     cfg = get_preset(args.scene, **overrides)
-    if cfg.encoder_type == "vertex":
-        raise NotImplementedError(
-            "main_torch.py: the vertex-feature encoder (and its progressive "
-            "levels) is not ported; ROADMAP Queue 1, item 8")
     workspace = args.workspace or cfg.workspace
     os.makedirs(workspace, exist_ok=True)
 
@@ -188,6 +189,23 @@ def main(argv=None):
     print(f"template: {len(template.vertices)} verts, "
           f"h_threshold={h_thr:.4f}")
     cfg = dataclasses.replace(cfg, h_threshold=h_thr)
+    if cfg.encoder_type == "vertex":
+        # the vertex encoder's level-0 feature mesh fixes the feature
+        # count; the progressive levels grow it (update_field_level)
+        t0 = time.perf_counter()
+        fea = mesh_field.make_feature_projector(
+            template, min_vertices=mesh_field.levels_vnum(cfg.field)[0],
+            device=device)
+        nv0 = int(fea.arrays.vertices.shape[0])
+        ccfg = dataclasses.replace(cfg.curved, field=dataclasses.replace(
+            cfg.field, n_feature_vertices=nv0))
+        field_state = mesh_field.make_state(projector, fea_projector=fea)
+        print(f"feature mesh: {nv0} vertices in "
+              f"{time.perf_counter() - t0:.3f} s; levels "
+              f"{mesh_field.levels_vnum(cfg.field)}")
+    else:
+        ccfg = cfg.curved
+        field_state = mesh_field.make_state(projector)
 
     curved_tcfg = cfg.curved_train
     teacher = None
@@ -196,8 +214,8 @@ def main(argv=None):
         teacher = load_ngp_teacher(workspace,
                                    NGPConfig(bound=cfg.render.bound),
                                    device=device)
-    trainer = CurvedTrainer(dataset, mesh_field.make_state(projector),
-                            cfg.curved, cfg.render, curved_tcfg,
+    trainer = CurvedTrainer(dataset, field_state, ccfg, cfg.render,
+                            curved_tcfg,
                             seed=args.seed, device=device, teacher=teacher,
                             workspace=workspace)
     trainer.template_mesh = template

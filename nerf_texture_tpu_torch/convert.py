@@ -6,10 +6,15 @@ curved model's dual table ``[table_rows, dual_storage_width]``), MLP
 weights are ``[in, out]``, the occupancy grid is C-order
 ``[cascade, H**3]``, the anchor table ``[H, H, H, 16]``.  The curved
 param tree (``field.encoder``, ``field.clusters``,
-``field.normal.{phi_grid, phi_net, theta_net}``, ``sigma_net``,
-``light.{env_shs, brdf_net}``) converts with ``params_from_jax`` as it
-is.  A JAX pytree is turned into numpy on the JAX side
-(``jax.tree.map(np.asarray, params)``); nothing here imports jax.
+``field.normal.{phi_grid, phi_net, theta_net}``, ``sigma_net`` and the
+light model's leaves: SH ``light.{env_shs, brdf_net}``, SG
+``light.{lgt_sgs, specular_reflectance, roughness, albedo_net[,
+blend_net]}``, Envmap ``light.{env_map, brdf_net}``; with the vertex
+encoder ``field.features_v`` [V, feature_dim] and ``field.clusters``
+[1, 16, feature_dim] in place of the table) converts with
+``params_from_jax`` as it is.  A JAX pytree is turned into numpy on the
+JAX side (``jax.tree.map(np.asarray, params)``); nothing here imports
+jax.
 """
 
 from __future__ import annotations

@@ -2,21 +2,27 @@
 ``nerf_texture_tpu/models/curved_field.py``).
 
 MeshFeatureField -> sigma MLP (embed -> hidden -> 1 + geo_feat_dim) ->
-the SH light model (or, with ``light_model='None'``, a colour MLP over
-the SH-encoded reflection direction).  ``forward`` shades every sample in
+a light model (``light_model`` 'SH', 'SG' or 'Envmap'; see
+``models/lights``) or, with ``light_model='None'``, a colour MLP over
+the SH-encoded reflection direction.  ``forward`` shades every sample in
 one pass, at inference or in training (noisy features and the
 -grad(sigma) normal target); ``regular_loss`` sums the training
 regularisers, the camera term among them; ``sigma_with_aux`` and
 ``color_from_aux`` are the two phases of the pool render: sigma over the
 whole pool, colour only on the survivors, reusing the sigma pass's
-embedding;
-``forward_baked`` reads the embeddings from a baked atlas.
+embedding; ``forward_baked`` reads the embeddings from a baked atlas.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-the SG and Envmap light models and imported environments (item 11.1),
-the visual modes other than RGB and the light rotation of the viewer
-(item 11.7), and the deferred shading of the baked atlas
-(``forward_baked_s1`` / ``_s2``, item 12).
+At inference every path takes the viewer's options: ``light_import``
+(an imported environment, ``CurvedTrainer.load_envmap``),
+``light_visual_mode`` (Full, Specular, Diffuse or Albedo of the light
+model), ``euler_rot`` (a [3, 3] rotation of the view directions and
+normals the light model sees) and ``visual_mode`` (RGB, or the
+diagnostics UV, Tan, Btan, Fea, Nc, Nf, Grad and the display normal;
+``forward_baked`` is RGB only).
+
+Not ported (raising ``NotImplementedError`` naming its ROADMAP item): the
+deferred shading of the baked atlas (``forward_baked_s1`` / ``_s2``,
+item 12).
 """
 
 from __future__ import annotations
@@ -28,8 +34,11 @@ import torch
 
 from ..ops.activation import trunc_exp
 from ..ops.encoding import freq_encode, sh_encode, sh_encode_dim
+from ..geometry import projector as proj
 from ..utils.mlp import apply_mlp, init_mlp
 from . import mesh_field, normal_net
+from .lights import envmap as envmap_light
+from .lights import sg as sg_light
 from .lights import sh as sh_light
 from .mesh_field import FieldRuntime, MeshFieldConfig, MeshFieldState
 
@@ -70,6 +79,19 @@ class CurvedFieldConfig:
             white_light=self.white_light, use_specular=self.use_specular)
 
     @property
+    def sg_cfg(self) -> sg_light.SGLightConfig:
+        return sg_light.SGLightConfig(
+            input_dim=self.geo_feat_dim, num_lgt_sgs=self.num_lgt_sgs,
+            num_brdf_sgs=self.num_brdf_sgs, white_light=self.white_light,
+            white_specular=self.white_specular)
+
+    @property
+    def env_cfg(self) -> envmap_light.EnvmapLightConfig:
+        return envmap_light.EnvmapLightConfig(
+            input_dim=self.geo_feat_dim, env_res=self.env_res,
+            white_light=self.white_light, use_specular=self.use_specular)
+
+    @property
     def field_name(self) -> str:
         """Config-encoding name of checkpoints and field files."""
         name = "curved_grid"
@@ -89,23 +111,20 @@ class CurvedFieldConfig:
         return name
 
 
-def _check_light(cfg: CurvedFieldConfig):
-    if cfg.light_model in ("SG", "Envmap"):
-        raise NotImplementedError(
-            f"curved_field: the {cfg.light_model} light model is not ported; "
-            f"ROADMAP Queue 1, item 11.1")
-
-
 def init(generator: torch.Generator, cfg: CurvedFieldConfig) -> dict[str, Any]:
     """Seeded params on the generator's device: {"field", "sigma_net",
-    "light" (SH) or "color_net" (no light model)}."""
-    _check_light(cfg)
+    "light" (the SH, SG or Envmap model's) or "color_net" (no light
+    model)}."""
     params = {"field": mesh_field.init(generator, cfg.field)}
     sigma_dims = ([cfg.field.embed_dim] + [cfg.hidden_dim]
                   * (cfg.num_layers - 1) + [1 + cfg.geo_feat_dim])
     params["sigma_net"] = init_mlp(generator, sigma_dims, bias=True)
-    if cfg.render_light_model:
+    if cfg.light_model == "SH":
         params["light"] = sh_light.init(generator, cfg.sh_cfg)
+    elif cfg.light_model == "SG":
+        params["light"] = sg_light.init(generator, cfg.sg_cfg)
+    elif cfg.light_model == "Envmap":
+        params["light"] = envmap_light.init(generator, cfg.env_cfg)
     else:
         color_in = (sh_encode_dim(cfg.dir_degree) + cfg.geo_feat_dim
                     if cfg.dir_degree > 0 else cfg.geo_feat_dim)
@@ -147,34 +166,19 @@ def sigma_with_aux(params, state: MeshFieldState, x: torch.Tensor,
                    "h_mask": out.h_mask}
 
 
-def _check_view(visual_mode: str, euler_rot, light_import):
-    if visual_mode != "RGB":
-        raise NotImplementedError(
-            f"curved_field: visual mode {visual_mode!r} is not ported (RGB "
-            f"only); ROADMAP Queue 1, item 11.7")
-    if euler_rot is not None:
-        raise NotImplementedError(
-            "curved_field: the light rotation (euler_rot) is not ported; "
-            "ROADMAP Queue 1, item 11.7")
-    if light_import is not None:
-        raise NotImplementedError(
-            "curved_field: imported environments are not ported; ROADMAP "
-            "Queue 1, item 11.1")
-
-
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / (torch.linalg.norm(v, dim=-1, keepdim=True) + 1e-5)
 
 
 def _light_or_color(params, geo_feat, normal, normal_coarse, d,
                     cfg: CurvedFieldConfig, light_visual_mode: str,
-                    gamma=None):
+                    gamma=None, light_import=None):
     """The colour of the shading normal: the light model's output
     ``light_visual_mode``, or the colour MLP without a light model."""
     if cfg.render_light_model:
         full, spec, dif, alb = shade(params, geo_feat, normal.detach(), d,
                                      cfg, normal_secondary=normal_coarse,
-                                     gamma=gamma)
+                                     gamma=gamma, light_import=light_import)
         return {"Full": full, "Specular": spec, "Diffuse": dif,
                 "Albedo": alb}[light_visual_mode]
     if cfg.dir_degree > 0:
@@ -186,6 +190,11 @@ def _light_or_color(params, geo_feat, normal, normal_coarse, d,
     return torch.sigmoid(apply_mlp(params["color_net"], h))
 
 
+def _rotate(euler_rot, *vs):
+    """Each [N, 3] of ``vs`` turned by the [3, 3] ``euler_rot``."""
+    return [torch.einsum("ab,nb->na", euler_rot, v) for v in vs]
+
+
 def color_from_aux(params, state: MeshFieldState, x: torch.Tensor,
                    d: torch.Tensor, aux, cfg: CurvedFieldConfig,
                    rt: FieldRuntime | None, frames, *,
@@ -195,14 +204,31 @@ def color_from_aux(params, state: MeshFieldState, x: torch.Tensor,
     """Colour phase of the pool render over the survivors, from the sigma
     phase's aux (embedding, geo features, shell mask) and the survivors'
     anchor frames: the phi grid at p_sur, the normal net, the TBN
-    rotation, the light model.  [N, 3], zero outside the shell."""
-    _check_view(visual_mode, euler_rot, light_import)
+    rotation, the (rotated) light model.  Every visual mode; 'Grad' (no
+    -grad(sigma) at inference) shows the display normal, as ``forward``
+    does.  [N, 3], zero outside the shell."""
     fcfg = cfg.field
     F = fcfg.encoder_f_out_dim
     x_embed = aux["embed"][..., :F]
     z_embed = aux["embed"][..., F:]
     n = frames["normal"]
     normal_coarse = _normalize(n)
+    mask = aux["h_mask"][..., None]
+    if visual_mode == "UV":
+        color, uv_mask = uv_visual(state, x, cfg,
+                                   rt if rt is not None
+                                   else FieldRuntime.default(), "none")
+        m = mask if uv_mask is None else (aux["h_mask"] & uv_mask)[..., None]
+        return torch.where(m, color, 0.0)
+    if visual_mode in ("Tan", "Btan"):
+        color = tbn_visual(state, x, cfg, "none",
+                           row=0 if visual_mode == "Tan" else 1)
+        return torch.where(mask, color, 0.0)
+    if visual_mode == "Fea":
+        return torch.where(mask, torch.clamp((aux["embed"][..., :3] + 1.0)
+                                             / 2.0, 0.0, 1.0), 0.0)
+    if visual_mode == "Nc":
+        return torch.where(mask, (normal_coarse + 1.0) / 2.0, 0.0)
     if fcfg.pred_normal:
         h = torch.sum((x - frames["p0"]) * n, dim=-1, keepdim=True)
         p_sur = x - h * n
@@ -215,31 +241,98 @@ def color_from_aux(params, state: MeshFieldState, x: torch.Tensor,
         nf = _normalize(torch.einsum("nba,nb->na", frames["tbn"], nf_local))
     else:
         nf = normal_coarse
+    if visual_mode == "Nf":
+        return torch.where(mask, (nf + 1.0) / 2.0, 0.0)
     normal = nf if cfg.render_light_model else normal_coarse
     if cfg.render_light_model and rt is not None \
             and rt.fc_weight is not None:
         # fine/coarse blend, as in `forward`
         normal = _normalize(rt.fc_weight * normal
                             + (1.0 - rt.fc_weight) * normal_coarse)
+    if visual_mode != "RGB":
+        # 'normal' and any other mode: the display normal
+        return torch.where(mask, (normal + 1.0) / 2.0, 0.0)
+    if euler_rot is not None:
+        d, normal, normal_coarse = _rotate(euler_rot, d, normal,
+                                           normal_coarse)
     color = _light_or_color(params, aux["geo"], normal, normal_coarse, d,
-                            cfg, light_visual_mode)
-    return torch.where(aux["h_mask"][..., None], color, 0.0)
+                            cfg, light_visual_mode, light_import=light_import)
+    return torch.where(mask, color, 0.0)
+
+
+def uv_visual(state: MeshFieldState, x: torch.Tensor, cfg: CurvedFieldConfig,
+              rt: FieldRuntime, mode: str):
+    """The UV visual mode: (colour [N, 3] = (u, v, 0), detached; h_mask
+    [N] or None).  Mode 'none' reads the template's UVs, 'shape' /
+    'unhash' the imported mesh's (the height scaled as in the field),
+    'field' the canvas coordinates mapped to [0, 1], 'patch' zeros (a
+    point cloud has no UVs)."""
+    fcfg = cfg.field
+    if mode == "field":
+        u = x[..., 0] / state.imported.bounds[0]
+        v = x[..., 1] / state.imported.bounds[1]
+        sdf = x[..., 2] - rt.sdf_offset
+        h_mask = ((torch.abs(sdf) < fcfg.h_threshold)
+                  & (torch.abs(u) <= 1.0) & (torch.abs(v) <= 1.0))
+        uv = torch.stack([(u + 1.0) / 2.0, (v + 1.0) / 2.0], -1)
+    elif mode == "patch":
+        return torch.zeros_like(x), None
+    else:
+        parr = state.projector if mode == "none" else state.projector_imported
+        uvh_out, h_mask, _, _ = proj.uvh(parr, x, k=fcfg.k_for_uv,
+                                         h_threshold=None)
+        sdf = uvh_out[..., 2]
+        if mode in ("shape", "unhash"):
+            # a tensor divisor divides exactly on CUDA, as in mesh_field
+            scale = torch.tensor(max(rt.sdf_scale_factor, 1e-5),
+                                 dtype=x.dtype, device=x.device)
+            sdf = sdf / scale - rt.sdf_offset
+        h_mask = h_mask & (torch.abs(sdf) < fcfg.h_threshold)
+        uv = uvh_out[..., :2]
+    color = torch.cat([uv, torch.zeros_like(uv[..., :1])], -1)
+    return color.detach(), h_mask
+
+
+def tbn_visual(state: MeshFieldState, x: torch.Tensor, cfg: CurvedFieldConfig,
+               mode: str, row: int) -> torch.Tensor:
+    """The Tan (row 0) / Btan (row 1) visual modes: the TBN frame's
+    tangent or bitangent of the face x projects onto, as (v + 1) / 2,
+    detached; 'field' shows the identity frame, 'patch' mid-grey."""
+    if mode == "field":
+        vec = torch.zeros_like(x)
+        vec[..., row] = 1.0
+        return (vec + 1.0) / 2.0
+    if mode == "patch":
+        return torch.full_like(x, 0.5)
+    parr = state.projector if mode == "none" else state.projector_imported
+    tbn, _ = proj.query_tbn(parr, x, k=cfg.field.k_for_uv,
+                            h_threshold=cfg.field.h_threshold)
+    return ((tbn[:, row] + 1.0) / 2.0).detach()
 
 
 def shade(params, geo_feat, normal_primary, view_dirs,
           cfg: CurvedFieldConfig, *, normal_secondary=None,
           shade_visibility: bool = True, gamma=None, light_import=None):
-    """Run the light model: (full, specular, diffuse, albedo)."""
-    _check_light(cfg)
-    if light_import:
-        raise NotImplementedError(
-            "curved_field.shade: imported environments are not ported; "
-            "ROADMAP Queue 1, item 11.1")
-    return sh_light.apply(
-        params["light"], geo_feat, normal_primary, view_dirs, cfg.sh_cfg,
-        normals_secondary=normal_secondary,
-        shade_visibility=shade_visibility and not cfg.no_visibility,
-        gamma=gamma)
+    """Run the light model: (full, specular, diffuse, albedo).  SH reads
+    the coarse normal ``normal_secondary`` for its visibility probes,
+    Envmap for its hemisphere mask; SG shades with -d as the view
+    direction.  ``light_import``: the imported environment's keyword
+    arguments of the model (``env_import`` [+ ``env_import_vis``,
+    ``probes``], or ``lgt_sgs_import``)."""
+    li = light_import or {}
+    if cfg.light_model == "SH":
+        return sh_light.apply(
+            params["light"], geo_feat, normal_primary, view_dirs,
+            cfg.sh_cfg, normals_secondary=normal_secondary,
+            shade_visibility=shade_visibility and not cfg.no_visibility,
+            gamma=gamma, **li)
+    if cfg.light_model == "SG":
+        return sg_light.apply(params["light"], geo_feat, normal_primary,
+                              -view_dirs, cfg.sg_cfg, **li)
+    return envmap_light.apply(params["light"], geo_feat, normal_primary,
+                              view_dirs, cfg.env_cfg,
+                              normal_coarse=normal_secondary, gamma=gamma,
+                              **li)
 
 
 def _sigma_grad_normal(params, state: MeshFieldState, x: torch.Tensor,
@@ -273,20 +366,18 @@ def forward(params, state: MeshFieldState, x: torch.Tensor,
             euler_rot=None, visual_mode: str = "RGB",
             light_visual_mode: str = "Full", gamma=None, light_import=None,
             frames=None):
-    """(sigma [N], color [N, 3], extras) through the anchor frames.
+    """(sigma [N], color [N, 3], extras).
 
     Inference (extras {}): noise-free features, the visual and light
-    modes as asked.  ``training``: the features get the probabilistic
-    ``noise`` [N, L * C] (with ``prob_model``), the colour is the full
+    modes as asked, the light turned by ``euler_rot``.  ``training``:
+    the features get the probabilistic ``noise`` [N, L * C] (with
+    ``prob_model`` and the hash encoder), the colour is the full
     shading of the RGB mode, and with a light model the normals come in
     pairs: extras['normal'] is the fine (predicted) normal, and
     extras['normal_grad'] its target, the -grad(sigma) normal smoothed
     toward the coarse normal by ``smooth_grad_weight`` and detached;
-    samples whose -grad(sigma) is not finite leave the shell mask."""
-    if training:
-        _check_view("RGB", None, light_import)
-    else:
-        _check_view(visual_mode, euler_rot, light_import)
+    samples whose -grad(sigma) is not finite leave the shell mask.  The
+    UV mode's mask replaces the shell mask."""
     extras = {}
     normal_grad = None
     if training and cfg.render_light_model:
@@ -310,9 +401,35 @@ def forward(params, state: MeshFieldState, x: torch.Tensor,
         extras["normal"] = fout.normal_fine
         extras["normal_grad"] = _normalize(normal_grad.detach() * (1 - w)
                                            + normal_coarse * w)
-    color = _light_or_color(params, geo_feat, normal, normal_coarse, d, cfg,
-                            "Full" if training else light_visual_mode,
-                            gamma=gamma)
+    normal_rot, coarse_rot, d_eff = normal, normal_coarse, d
+    if euler_rot is not None and not training:
+        d_eff, normal_rot, coarse_rot = _rotate(euler_rot, d, normal,
+                                                normal_coarse)
+    if training or visual_mode == "RGB":
+        color = _light_or_color(params, geo_feat, normal_rot, coarse_rot,
+                                d_eff, cfg,
+                                "Full" if training else light_visual_mode,
+                                gamma=gamma, light_import=light_import)
+    elif visual_mode == "UV":
+        color, uv_mask = uv_visual(state, x, cfg,
+                                   rt if rt is not None
+                                   else FieldRuntime.default(), mode)
+        if uv_mask is not None:
+            h_mask = uv_mask
+    elif visual_mode in ("Tan", "Btan"):
+        color = tbn_visual(state, x, cfg, mode,
+                           row=0 if visual_mode == "Tan" else 1)
+    elif visual_mode == "Grad" and normal_grad is not None:
+        color = (normal_grad + 1.0) / 2.0
+    elif visual_mode == "Nc":
+        color = (normal_coarse + 1.0) / 2.0
+    elif visual_mode == "Nf":
+        color = (fout.normal_fine + 1.0) / 2.0
+    elif visual_mode == "Fea":
+        color = torch.clamp((fout.embed[..., :3] + 1.0) / 2.0, 0.0, 1.0)
+    else:
+        # 'normal', and 'Grad' at inference: the display normal
+        color = (normal + 1.0) / 2.0
     sigma = torch.where(h_mask, sigma, 0.0)
     color = torch.where(h_mask[..., None], color, 0.0)
     return sigma, color, extras
@@ -331,7 +448,6 @@ def forward_baked(params, bake, x: torch.Tensor, d: torch.Tensor,
     the baked tiles."""
     from ..render import baked as baked_mod
 
-    _check_view("RGB", euler_rot, light_import)
     fcfg = cfg.field
     normal_coarse = _normalize(frames["normal"])
     h = torch.sum((x - frames["p0"]) * normal_coarse, dim=-1, keepdim=True)
@@ -345,16 +461,19 @@ def forward_baked(params, bake, x: torch.Tensor, d: torch.Tensor,
         & tile_ok
     color = _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat,
                          frames["tbn"], normal_coarse, d, cfg, rt,
-                         light_visual_mode=light_visual_mode)
+                         light_visual_mode=light_visual_mode,
+                         euler_rot=euler_rot, light_import=light_import)
     return (torch.where(h_mask, sigma, 0.0),
             torch.where(h_mask[..., None], color, 0.0))
 
 
 def _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat, tbn,
                  normal_coarse, d, cfg: CurvedFieldConfig,
-                 rt: FieldRuntime | None, *, light_visual_mode: str = "Full"):
+                 rt: FieldRuntime | None, *, light_visual_mode: str = "Full",
+                 euler_rot=None, light_import=None):
     """The shading of ``forward_baked``: the normal net on the baked
-    embeddings, the fine / coarse blend, the light model or colour MLP."""
+    embeddings, the fine / coarse blend, the rotation, the light model or
+    colour MLP."""
     fcfg = cfg.field
     if fcfg.pred_normal:
         nf_local = normal_net.apply(params["field"]["normal"], z_embed,
@@ -368,8 +487,16 @@ def _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat, tbn,
             and rt.fc_weight is not None:
         normal = _normalize(rt.fc_weight * normal
                             + (1.0 - rt.fc_weight) * normal_coarse)
+    if euler_rot is not None:
+        d, normal, normal_coarse = _rotate(euler_rot, d, normal,
+                                           normal_coarse)
     return _light_or_color(params, geo_feat, normal, normal_coarse, d, cfg,
-                           light_visual_mode)
+                           light_visual_mode, light_import=light_import)
+
+
+VISUAL_MODES = ["RGB", "UV", "Grad", "Nc", "Tan", "Btan", "normal", "Fea",
+                "Nf"]
+LIGHT_VISUAL_MODES = ["Full", "Specular", "Diffuse", "Albedo"]
 
 
 def regular_loss(params, cfg: CurvedFieldConfig, step=None, *,

@@ -34,8 +34,15 @@ canvas by the inverse of the sample TBN the texel was exported with,
 and in mode 'shape' by the target face's TBN.  The regularisers
 (clustering, KL) read the table's feature lanes.
 
-Not ported (raising ``NotImplementedError`` naming its ROADMAP item): the
-vertex-feature encoder (item 8).
+With ``encoder_type='vertex'`` the features live on the vertices of a
+subdivided copy of the template (``make_feature_projector``, the
+state's ``projector_fea``): in mode 'none' each sample is projected
+exactly (no anchor frames) and the hit face of the feature mesh, cast
+along the detached coarse normal (``barycentric_mapping``), blends its
+vertices' features; tanh and a frequency encoding make the embedding
+(the import modes encode their features the same way).  The progressive
+schedule grows the feature mesh level by level (``levels_vnum``,
+``grow_feature_mesh``).
 """
 
 from __future__ import annotations
@@ -184,24 +191,95 @@ def make_state(mesh_projector: MeshProjector,
                        if fea_projector is not None else None))
 
 
+def make_feature_projector(mesh, min_vertices: int = 128 ** 2, *,
+                           device: torch.device | str = "cuda"
+                           ) -> MeshProjector:
+    """The vertex encoder's feature mesh: the template subdivided until it
+    has >= min_vertices, indexed without UVs."""
+    from ..geometry.shape_tools import subdivide_to
+
+    return MeshProjector(subdivide_to(mesh, min_vertices), store_uv=False,
+                         device=device)
+
+
+def levels_vnum(cfg: MeshFieldConfig) -> tuple[int, ...]:
+    """The progressive schedule's vertex counts: geometric from base_vnum
+    to target_vnum over level_num levels (target_vnum alone for one)."""
+    if cfg.level_num <= 1:
+        return (cfg.target_vnum,)
+    ts = np.linspace(0.0, np.log2(cfg.target_vnum / cfg.base_vnum),
+                     cfg.level_num)
+    return tuple(int(round(cfg.base_vnum * 2.0 ** t)) for t in ts)
+
+
+def _lift_midpoints(feats: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Features of one midpoint subdivision: the old rows, then one row
+    per edge, 0.5 (f_u + f_v), in the order ``shape_tools.subdivide``
+    numbers the midpoints (faces in order, edges ab, bc, ca, each at its
+    first occurrence)."""
+    e = faces[:, [0, 1, 1, 2, 2, 0]].reshape(-1, 2)
+    key = np.minimum(e[:, 0], e[:, 1]) * (len(feats) + 1) \
+        + np.maximum(e[:, 0], e[:, 1])
+    _, first = np.unique(key, return_index=True)
+    uv = e[np.sort(first)]
+    return np.vstack([feats, 0.5 * (feats[uv[:, 0]] + feats[uv[:, 1]])])
+
+
+def grow_feature_mesh(params, ema_params, state: MeshFieldState,
+                      cfg: MeshFieldConfig, target_vnum: int):
+    """Advance the vertex-feature mesh to >= target_vnum vertices: the
+    current feature mesh (its device vertices, as the JAX function reads
+    them) subdivided, the features and their EMA lifted to the new
+    vertices by edge-midpoint averaging (the barycentric resample of the
+    new vertices, exact on the old surface; host numpy, as in JAX).
+    Returns (features [V, C], ema features, new state, V) on the state's
+    device; the caller swaps them into the params and sets
+    n_feature_vertices."""
+    from ..geometry.mesh import Mesh
+    from ..geometry.shape_tools import subdivide
+
+    old = state.projector_fea
+    dev = old.vertices.device
+    mesh = Mesh(old.vertices.cpu().numpy(), old.faces.cpu().numpy())
+    feats = [params["features_v"].detach().cpu().numpy(),
+             ema_params["features_v"].detach().cpu().numpy()]
+    while len(mesh.vertices) < target_vnum:
+        feats = [_lift_midpoints(f, mesh.faces) for f in feats]
+        mesh = subdivide(mesh)
+    new_proj = MeshProjector(mesh, store_uv=False, device=dev)
+    features, ema_features = (torch.as_tensor(f, device=dev) for f in feats)
+    return (features, ema_features,
+            state._replace(projector_fea=new_proj.arrays),
+            int(mesh.vertices.shape[0]))
+
+
 def init(generator: torch.Generator, cfg: MeshFieldConfig) -> dict[str, Any]:
     """Seeded params on the generator's device: the hash encoder's table
     (dual with ``prob_model``: means U(-1e-4, 1e-4), log-variances
-    logvar_init + U(-1e-5, 1e-5)), the cluster centres and the normal
-    net."""
-    if cfg.encoder_type != "hash":
-        raise NotImplementedError(
-            "mesh_field.init: the vertex-feature encoder is not ported; "
-            "ROADMAP Queue 1, item 8")
-    spec = cfg.feature_spec
-    if cfg.prob_model:
-        params: dict[str, Any] = {"encoder": spec.init_dual(
-            generator, std_a=1e-4, std_b=1e-5, mean_b=cfg.logvar_init)}
+    logvar_init + U(-1e-5, 1e-5)) and its cluster centres, or the vertex
+    encoder's ``features_v`` [n_feature_vertices, feature_dim]
+    U(-1, 1) and its 16 cluster centres; the normal net."""
+    if cfg.encoder_type == "vertex":
+        if cfg.n_feature_vertices <= 0:
+            raise ValueError("encoder_type='vertex' needs "
+                             "n_feature_vertices (the feature-mesh vertex "
+                             "count) set in MeshFieldConfig")
+        u = torch.rand((cfg.n_feature_vertices, cfg.feature_dim),
+                       generator=generator, device=generator.device)
+        params: dict[str, Any] = {"features_v": u * 2.0 - 1.0}
+        if cfg.clustering:
+            params["clusters"] = clus.init_cluster_centers(
+                generator, 1, 16, cfg.feature_dim)
     else:
-        params = {"encoder": spec.init(generator)}
-    if cfg.clustering:
-        params["clusters"] = clus.init_cluster_centers(
-            generator, cfg.num_levels, cfg.n_clusters, cfg.level_dim)
+        spec = cfg.feature_spec
+        if cfg.prob_model:
+            params = {"encoder": spec.init_dual(
+                generator, std_a=1e-4, std_b=1e-5, mean_b=cfg.logvar_init)}
+        else:
+            params = {"encoder": spec.init(generator)}
+        if cfg.clustering:
+            params["clusters"] = clus.init_cluster_centers(
+                generator, cfg.num_levels, cfg.n_clusters, cfg.level_dim)
     if cfg.pred_normal:
         params["normal"] = normal_net.init(generator, cfg.normal_cfg)
     return params
@@ -239,13 +317,19 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
     [N, L * C] is a standard normal draw.  The hash table is read through
     bf16 rows (``infer_table_bf16`` without noise, ``train_table_bf16``
     with it); a bf16 inference table (``hashgrid_packed.inference_table``)
-    is read as it is.  The import modes read ``state.imported`` and have
-    no noise; they compute the fine normal whatever ``need_normals`` says,
-    as the JAX function does."""
-    if cfg.encoder_type != "hash":
-        raise NotImplementedError(
-            "mesh_field.apply: the vertex-feature encoder is not ported; "
-            "ROADMAP Queue 1, item 8")
+    is read as it is.  The vertex encoder has no noise and no anchor
+    frames (``ValueError``): its features come from the feature mesh's
+    hit face (``requires_grad_xyz`` carries that cast's gradient into x
+    too).  The import modes read ``state.imported`` and have no noise;
+    they compute the fine normal whatever ``need_normals`` says, as the
+    JAX function does."""
+    vertex = cfg.encoder_type == "vertex"
+
+    def encode_imported(feats):
+        # the vertex encoder's canvases and points hold raw features
+        return (freq_encode(torch.tanh(feats), cfg.vertex_multires)
+                if vertex else feats)
+
     if rt is None:
         rt = FieldRuntime.default()
     ncfg = cfg.normal_cfg
@@ -255,6 +339,11 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
     if mode == "none":
         amp = cfg.infer_table_bf16 if no_noise else cfg.train_table_bf16
         if frames is not None:
+            if vertex:
+                raise ValueError(
+                    "per_ray_projection is incompatible with "
+                    "encoder_type='vertex' (barycentric feature lookup is "
+                    "per sample)")
             n = frames["normal"].detach()
             p0 = frames["p0"].detach()
             sdf = torch.sum((x - p0) * n, dim=-1, keepdim=True)
@@ -267,7 +356,16 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
             p_sur, sdf, h_mask, normal_coarse, local_tbn = proj.project(
                 state.projector, x, k=cfg.k, h_threshold=cfg.h_threshold,
                 requires_grad_xyz=requires_grad_xyz)
-        if cfg.prob_model and not no_noise:
+        if vertex:
+            # the feature mesh's hit face along the detached coarse normal
+            vertex_idx, bary, sdf, h_mask, _ = proj.barycentric_mapping(
+                state.projector_fea, x, normal_coarse.detach(),
+                h_threshold=cfg.h_threshold,
+                requires_grad_xyz=requires_grad_xyz)
+            feats = torch.sum(params["features_v"][vertex_idx]
+                              * bary[..., None], dim=-2)
+            x_embed = freq_encode(torch.tanh(feats), cfg.vertex_multires)
+        elif cfg.prob_model and not no_noise:
             if noise is None:
                 raise ValueError("mesh_field.apply: the probabilistic "
                                  "features need a noise draw (or "
@@ -302,7 +400,7 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
         sdf = x[..., 2:3] - rt.sdf_offset
         h_mask = (torch.abs(sdf[..., 0]) < cfg.h_threshold) \
             & torch.all(torch.abs(p_sur) <= 1.0, dim=-1)
-        x_embed = grid_sample_2d(imp.features_2d, p_sur)
+        x_embed = encode_imported(grid_sample_2d(imp.features_2d, p_sur))
         z_embed = freq_encode(sdf, cfg.z_multires)
         normal_coarse = torch.zeros_like(x)
         normal_coarse[..., 2] = 1.0
@@ -318,7 +416,8 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
         sdf, idx, weights, normal_coarse, dis = proj.weighted_project(
             state.projector_imported, x, k=8, direct_above_check=True,
             direct_above_threshold=1.0)
-        x_embed = torch.sum(weights[..., None] * imp.features_v[idx], dim=-2)
+        x_embed = encode_imported(torch.sum(
+            weights[..., None] * imp.features_v[idx], dim=-2))
         z_embed = freq_encode(sdf, cfg.z_multires)
         h_mask = (torch.abs(sdf[..., 0]) < cfg.h_threshold) \
             & (torch.amin(dis, dim=-1) < cfg.h_threshold)
@@ -328,7 +427,8 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
             local_tbn = torch.sum(weights[..., None, None]
                                   * imp.local_tbn_v[idx], dim=-3)
     elif mode == "shape":
-        if imp.features_2d.shape[-1] != cfg.encoder_f_out_dim or (
+        if imp.features_2d.shape[-1] != (cfg.feature_dim if vertex else
+                                         cfg.encoder_f_out_dim) or (
                 cfg.pred_normal
                 and imp.phi_embed_2d.shape[-1] != ncfg.phi_embed_dim):
             # the JAX function fails inside the normal net with a
@@ -346,7 +446,7 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
                                  1e-5), dtype=x.dtype, device=x.device)
         sdf = uvh_out[..., 2:3] / scale - rt.sdf_offset
         p_sur = uvh_out[..., :2] * rt.uv_utilize_rate
-        x_embed = grid_sample_2d(imp.features_2d, p_sur)
+        x_embed = encode_imported(grid_sample_2d(imp.features_2d, p_sur))
         z_embed = freq_encode(sdf, cfg.z_multires)
         if cfg.pred_normal:
             tid = grid_sample_2d(
@@ -372,8 +472,8 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
         # vertices through its UV atlas (a reference quirk, ROADMAP
         # Queue 3)
         vertex_idx = torch.clamp(vertex_idx, max=imp.features_v.shape[0] - 1)
-        x_embed = torch.sum(imp.features_v[vertex_idx] * bary[..., None],
-                            dim=-2)
+        x_embed = encode_imported(torch.sum(
+            imp.features_v[vertex_idx] * bary[..., None], dim=-2))
         z_embed = freq_encode(sdf, cfg.z_multires)
         if cfg.pred_normal:
             phi_embed = torch.sum(imp.phi_embed_v[vertex_idx]
@@ -405,13 +505,13 @@ def apply(params, state: MeshFieldState, x: torch.Tensor,
 def clustering_loss(params, cfg: MeshFieldConfig, level: int | None = None):
     """The clustering regulariser over the hash table's feature lanes:
     level ``level`` (the JAX function's random pick), or every level
-    summed; 0.0 without ``clustering``."""
+    summed; over the raw vertex features with the vertex encoder (no
+    level); 0.0 without ``clustering``."""
     if not cfg.clustering:
         return 0.0
-    if cfg.encoder_type != "hash":
-        raise NotImplementedError(
-            "mesh_field.clustering_loss: the vertex-feature encoder is not "
-            "ported; ROADMAP Queue 1, item 8")
+    if cfg.encoder_type == "vertex":
+        return clus.clustering_loss_level(params["features_v"],
+                                          params["clusters"][0])
     spec = cfg.feature_spec
     slices = [(spec.offsets[i], spec.offsets[i + 1])
               for i in range(cfg.num_levels)]
@@ -423,8 +523,9 @@ def clustering_loss(params, cfg: MeshFieldConfig, level: int | None = None):
 def kl_loss(params, cfg: MeshFieldConfig, normal: bool = False):
     """VAE prior on the probabilistic features: over the dual table's
     log-variance lanes [rw, 2 rw) (and with ``normal`` the means [0, rw)
-    too); the padding lanes beyond 2 rw are never read.  Not part of the
-    training loss (as in the JAX package)."""
+    too); the padding lanes beyond 2 rw are never read; 0.0 for the
+    vertex encoder.  Not part of the training loss (as in the JAX
+    package)."""
     if not cfg.prob_model or cfg.encoder_type != "hash":
         return 0.0
     rw = cfg.feature_spec.row_width

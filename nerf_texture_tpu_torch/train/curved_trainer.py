@@ -35,7 +35,14 @@ marched samples.
     baked atlas (``bake_atlas``, ``render.baked``);
   eval_psnr(frames): PSNR of the training views;
   save_checkpoint / load_checkpoint / resume / checkpoint /
-    checkpoint_best: checkpoints in ``train.trainer``'s format.
+    checkpoint_best: checkpoints in ``train.trainer``'s format;
+  load_envmap(path) / clear_envmap(): relight every render path with an
+    imported environment image, and back to the learned light; the
+    viewer's ``light_visual_mode``, ``visual_mode`` and ``euler`` (a
+    rotation vector of the light) reach every render path too;
+  update_field_level(): with the vertex encoder, the next level of the
+    progressive feature mesh (``train`` advances one every
+    ``iters_per_level`` steps).
 
 The JAX trainer's ``lru``/``id()`` caches become explicit state here: the
 anchor table is built once per template mesh, the inference tables
@@ -58,15 +65,16 @@ trained field's alone), over the z = 0 slab of the flat canvas or the
 cells near the imported mesh or points.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): progressive vertex levels (item 8), training in an import mode
-(item 11.2: the reference has no caller of a pose-free refit of an
-import), and the deferred shading of the baked render (item 12).
+item): training in an import mode (item 11.2: the reference has no
+caller of a pose-free refit of an import), and the deferred shading of
+the baked render (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import warnings
 from typing import Any, NamedTuple
 
@@ -75,8 +83,9 @@ import torch
 
 from ..data.rays import error_map_draws, get_rays, sample_ray_indices
 from ..geometry import projector as proj
-from ..models import curved_field, ngp, normal_net
+from ..models import curved_field, mesh_field, ngp, normal_net
 from ..models.curved_field import CurvedFieldConfig
+from ..models.lights import sh as sh_light
 from ..models.mesh_field import FieldRuntime, MeshFieldConfig, MeshFieldState
 from ..ops import occupancy as occ_mod
 from ..ops.hashgrid_packed import inference_table, packed_encode_bound
@@ -210,10 +219,10 @@ def sample_curved_batch(generator: torch.Generator, *, num_frames: int,
                         level: int | None) -> CurvedBatch:
     """A training step's draws on the generator's device: a frame, the
     pixel indices, the march jitter, a per-pixel background and (with
-    ``prob_model``) the feature noise.  ``level`` is the clustering level,
-    a host int that the caller draws (``CurvedTrainer.train`` draws a
-    whole call's levels from the same generator in one transfer, so no
-    step waits for the card)."""
+    ``prob_model`` and the hash encoder) the feature noise.  ``level`` is
+    the clustering level, a host int that the caller draws
+    (``CurvedTrainer.train`` draws a whole call's levels from the same
+    generator in one transfer, so no step waits for the card)."""
     dev = generator.device
     frame = torch.randint(0, num_frames, (), generator=generator,
                           device=dev)
@@ -225,7 +234,7 @@ def sample_curved_batch(generator: torch.Generator, *, num_frames: int,
     u = torch.rand((tcfg.num_rays,), generator=generator, device=dev)
     bg = torch.rand((tcfg.num_rays, 3), generator=generator, device=dev)
     noise = None
-    if fcfg.prob_model:
+    if fcfg.prob_model and fcfg.encoder_type == "hash":
         noise = torch.randn((noise_rows(rcfg, tcfg.num_rays),
                              fcfg.encoder_f_out_dim), generator=generator,
                             device=dev)
@@ -245,7 +254,7 @@ def sample_distill_batch(generator: torch.Generator, *, num_frames: int,
     inds, _ = sample_ray_indices(generator, H, W, tcfg.num_rays)
     u = torch.rand((tcfg.num_rays,), generator=generator, device=dev)
     noise = None
-    if fcfg.prob_model:
+    if fcfg.prob_model and fcfg.encoder_type == "hash":
         noise = torch.randn((tcfg.num_rays * DISTILL_SAMPLES,
                              fcfg.encoder_f_out_dim), generator=generator,
                             device=dev)
@@ -253,10 +262,6 @@ def sample_distill_batch(generator: torch.Generator, *, num_frames: int,
 
 
 def _check_training_features(tcfg: "CurvedTrainConfig", mode: str):
-    if tcfg.iters_per_level > 0:
-        raise NotImplementedError(
-            "curved training: progressive vertex levels (iters_per_level) "
-            "are not ported; ROADMAP Queue 1, item 8")
     if mode != "none":
         raise NotImplementedError(
             f"curved training: import mode {mode!r} is not ported; ROADMAP "
@@ -595,7 +600,8 @@ def canvas_near_cells(grid_size: int, bound: float,
 
 # ---------------------------------------------------------------------------
 # field functions of the render: bundle = {'params', 'field_state', 'rt'
-# [, 'anchor_tab']}, static = (ccfg, mode, visual_mode, light_visual_mode)
+# [, 'anchor_tab', 'light_import', 'euler_rot']}, static = (ccfg, mode,
+# visual_mode, light_visual_mode)
 # ---------------------------------------------------------------------------
 
 def curved_field_apply(bundle, x, d, static, frames=None):
@@ -604,7 +610,9 @@ def curved_field_apply(bundle, x, d, static, frames=None):
     sigma, color, _ = curved_field.forward(
         bundle["params"], bundle["field_state"], x, d, ccfg, bundle["rt"],
         mode=mode, training=False, visual_mode=visual_mode,
-        light_visual_mode=light_visual_mode, frames=frames)
+        light_visual_mode=light_visual_mode, frames=frames,
+        light_import=bundle.get("light_import"),
+        euler_rot=bundle.get("euler_rot"))
     return sigma, color
 
 
@@ -635,7 +643,9 @@ def curved_color_apply(bundle, x, d, aux, static, frames=None):
     return curved_field.color_from_aux(
         bundle["params"], bundle["field_state"], x, d, aux, ccfg,
         bundle["rt"], frames, visual_mode=visual_mode,
-        light_visual_mode=light_visual_mode)
+        light_visual_mode=light_visual_mode,
+        light_import=bundle.get("light_import"),
+        euler_rot=bundle.get("euler_rot"))
 
 
 def curved_field_apply_baked(bundle, x, d, static, frames=None):
@@ -644,7 +654,9 @@ def curved_field_apply_baked(bundle, x, d, static, frames=None):
     ccfg, _, _, light_visual_mode = static
     return curved_field.forward_baked(
         bundle["params"], bundle["bake"], x, d, ccfg, bundle["rt"], frames,
-        light_visual_mode=light_visual_mode)
+        light_visual_mode=light_visual_mode,
+        light_import=bundle.get("light_import"),
+        euler_rot=bundle.get("euler_rot"))
 
 
 def curved_anchor_apply_baked(bundle, rays_o, rays_d, x_seed, seed_valid,
@@ -671,13 +683,15 @@ def _bake_encode_chunk(enc, nparams, pts, fcfg: MeshFieldConfig):
 def curved_infer_params(params, ccfg: CurvedFieldConfig):
     """Params whose hash grids are what inference reads: with
     ``infer_table_bf16`` the bf16 [rows, row_width] copies of the
-    encoder table (its mean lanes) and of the phi grid.  The copies are
+    encoder table (its mean lanes; the hash encoder's) and of the phi
+    grid.  The copies are
     taken now: params updated afterwards need new ones."""
     fcfg = ccfg.field
     if not fcfg.infer_table_bf16:
         return params
     field = dict(params["field"])
-    if field["encoder"].dtype != torch.bfloat16:
+    if fcfg.encoder_type == "hash" and field["encoder"].dtype \
+            != torch.bfloat16:
         field["encoder"] = inference_table(field["encoder"],
                                            fcfg.feature_spec)
     if fcfg.pred_normal and field["normal"]["phi_grid"].dtype \
@@ -735,6 +749,12 @@ class CurvedTrainer(CheckpointMethods):
         self.runtime = FieldRuntime.default()
         self.visual_mode = "RGB"
         self.light_visual_mode = "Full"
+        self.fea_level = 0               # the vertex encoder's level
+        # the imported environment (``load_envmap``; None: the learned
+        # light) and the light's rotation vector (None: off), passed to
+        # every render path
+        self.light_import = None
+        self.euler = None
         # per-cell anchor table, built once per template mesh; collapsed
         # columns give one chart per surface patch through the shell
         self.anchor_cache = True
@@ -753,8 +773,10 @@ class CurvedTrainer(CheckpointMethods):
         """Run ``steps`` iterations, refreshing the density grid before
         every step whose count is a multiple of ``grid_update_interval``
         (always over the near cells, so ``grid_full_updates`` does not
-        apply, as in the JAX trainer).  With ``tcfg.distillation`` and a
-        teacher, each step is a ``distill_step`` with probability
+        apply, as in the JAX trainer), and before that, with the vertex
+        encoder and ``iters_per_level``, advancing the feature mesh to the
+        step's level (``update_field_level``).  With ``tcfg.distillation``
+        and a teacher, each step is a ``distill_step`` with probability
         ``distillation_prob`` (the coins of the whole call are drawn in
         one transfer), else a ``curved_train_step``.  ``tcfg.scan_steps``
         has no effect: the JAX package fuses that many steps into one TPU
@@ -786,6 +808,7 @@ class CurvedTrainer(CheckpointMethods):
                        < tcfg.distillation_prob).tolist()
         losses = []
         for i in range(steps):
+            self._maybe_update_level(self.state.step)
             if self.state.step % tcfg.grid_update_interval == 0:
                 self._refresh()
             if distill[i]:
@@ -818,6 +841,109 @@ class CurvedTrainer(CheckpointMethods):
         losses = torch.stack(losses).tolist() if losses else []
         return {"loss": losses[-1] if losses else float("nan"),
                 "losses": losses}
+
+    def update_field_level(self, target_level: int | None = None) -> bool:
+        """Advance the vertex encoder's feature mesh one level (up to
+        ``target_level``): ``mesh_field.grow_feature_mesh`` lifts the
+        features and their EMA onto the subdivided mesh, the config's
+        n_feature_vertices follows, and the optimizer holds the new leaf
+        in the old one's place.  As optax's tree of slots does, a leaf
+        whose shape changed starts with zero moments but the global step
+        count (its bias correction and the LR schedule go on counting),
+        one whose shape held keeps its moments, and every other leaf keeps
+        its state.  Returns True when a level was applied."""
+        fcfg = self.ccfg.field
+        if fcfg.encoder_type != "vertex" or fcfg.level_num <= 1 \
+                or self.fea_level >= fcfg.level_num - 1:
+            return False
+        if target_level is not None and self.fea_level >= target_level:
+            return False
+        self.fea_level += 1
+        vnum = mesh_field.levels_vnum(fcfg)[self.fea_level]
+        st = self.state
+        features, ema_features, self.field_state, V = \
+            mesh_field.grow_feature_mesh(st.params["field"],
+                                         st.ema_params["field"],
+                                         self.field_state, fcfg, vnum)
+        self.ccfg = dataclasses.replace(
+            self.ccfg, field=dataclasses.replace(fcfg, n_feature_vertices=V))
+        old = st.params["field"]["features_v"]
+        new = features.requires_grad_(True)
+        for group in st.optimizer.param_groups:
+            group["params"] = [new if p is old else p
+                               for p in group["params"]]
+        slot = st.optimizer.state.pop(old, None)
+        if slot is not None:
+            if slot["exp_avg"].shape != new.shape:
+                slot = {"step": slot["step"].clone(),
+                        "exp_avg": torch.zeros_like(new),
+                        "exp_avg_sq": torch.zeros_like(new)}
+            st.optimizer.state[new] = slot
+        st.params["field"]["features_v"] = new
+        st.ema_params["field"]["features_v"] = ema_features
+        self._params_replaced()
+        return True
+
+    def _maybe_update_level(self, step: int):
+        if self.tcfg.iters_per_level > 0 \
+                and step % self.tcfg.iters_per_level == 0:
+            self.update_field_level(step // self.tcfg.iters_per_level)
+
+    def load_envmap(self, path: str, *, with_visibility: bool = True,
+                    probe_res: int = 8, fit_dirs=None) -> bool:
+        """Relight with an environment image (equirect; PNG, or what
+        ``data.images.load_image`` reads): every render path then shades
+        with it until ``clear_envmap``.  SH: its SH projection and, with
+        ``with_visibility`` (and the model's visibility on), the
+        per-probe visibility products on a probe_res^2 grid, fitted over
+        ``fit_dirs`` (see ``sh.fit_product_shs``).  Envmap: the image
+        resampled at the probe grid's pixel centres (grey for a white
+        light).  SG raises ``ValueError``: the JAX method reads a config
+        field that ``SGLightConfig`` lacks and fails with an
+        AttributeError; fit the lobes with ``sg.envmap_to_sg`` and set
+        ``light_import = {"lgt_sgs_import": lobes}`` instead.  Returns
+        False, with a warning, when the file is missing."""
+        if not os.path.exists(path):
+            warnings.warn(f"envmap {path} not found; keeping the learned "
+                          "environment")
+            return False
+        lm = self.ccfg.light_model
+        if lm == "SG":
+            raise ValueError(
+                "CurvedTrainer.load_envmap: the SG light model has no "
+                "import here -- the JAX method reads sg_cfg.num_sgs, which "
+                "SGLightConfig lacks, and fails (ROADMAP Queue 3, reference "
+                "quirks); fit lobes with models.lights.sg.envmap_to_sg and "
+                "set light_import={'lgt_sgs_import': lobes}")
+        if lm == "SH":
+            cfg = self.ccfg.sh_cfg
+            env = sh_light.image_to_envmap(path, force_white=cfg.white_light)
+            shs = sh_light.envmap_to_sh(env, sh_order=cfg.sh_order)
+            li = {"env_import": torch.as_tensor(shs, dtype=torch.float32,
+                                                device=self.device)}
+            if with_visibility and not self.ccfg.no_visibility:
+                li["env_import_vis"], li["probes"] = \
+                    sh_light.build_visibility_probes(
+                        shs[:9], res=probe_res, dirs=fit_dirs,
+                        device=self.device)
+        else:
+            cfg = self.ccfg.env_cfg
+            env = sh_light.image_to_envmap(path, force_white=cfg.white_light)
+            res = cfg.env_res
+            H0, W0 = env.shape[:2]
+            iy = (np.arange(res) + 0.5) / res * H0
+            ix = (np.arange(res) + 0.5) / res * W0
+            env_r = env[iy.astype(int)][:, ix.astype(int)]
+            if cfg.white_light:
+                env_r = env_r.mean(-1, keepdims=True)
+            li = {"env_import": torch.as_tensor(env_r, dtype=torch.float32,
+                                                device=self.device)}
+        self.light_import = li
+        return True
+
+    def clear_envmap(self):
+        """Back to the learned environment light."""
+        self.light_import = None
 
     def _anchor_table(self) -> torch.Tensor:
         """Per-cell anchor frames, built once per template mesh."""
@@ -967,6 +1093,9 @@ class CurvedTrainer(CheckpointMethods):
         'none', RGB, the hash encoder and the collapsed anchor table, and
         without them warns and renders the live field.
         ``plain_select`` runs the plain selection in place of the kernel.
+        Every path shades with ``light_import``, ``euler`` and
+        ``light_visual_mode``; the live and pool paths in
+        ``visual_mode`` (the baked path is RGB only).
 
         Returns dict(image [H, W, 3], depth, weights_sum, live, chunks)."""
         params = self.state.ema_params if use_ema else self.state.params
@@ -974,6 +1103,11 @@ class CurvedTrainer(CheckpointMethods):
                   self.light_visual_mode)
         bundle = {"params": self._infer_params(params),
                   "field_state": self.field_state, "rt": self.runtime}
+        if self.light_import is not None:
+            bundle["light_import"] = self.light_import
+        if self.euler is not None:
+            bundle["euler_rot"] = axis_angle_to_matrix(torch.as_tensor(
+                np.asarray(self.euler, np.float32), device=self.device))
         rcfg = self.rcfg
         use_frames = _use_frames(self.ccfg, self.mode)
         if parity:

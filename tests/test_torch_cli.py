@@ -1,8 +1,9 @@
 """The port's training entry points: ``main_nerf_torch.py --save_mesh``,
-then ``main_torch.py --distillation`` on its workspace, then a resume, as
-subprocesses on the CPU, with the artifacts and printed lines of the JAX
-CLIs' smoke test (tests/test_cli_smoke.py); and the port's
-``config.py`` against the JAX package's.
+then ``main_torch.py --distillation`` on its workspace, then a resume,
+as subprocesses on the CPU, with the artifacts and printed lines of the
+JAX CLIs' smoke test (tests/test_cli_smoke.py); and the port's
+``config.py`` against the JAX package's.  ``--light_model`` and
+``--encoder vertex`` runs: tests/test_torch_cli_models.py.
 
 The subprocesses run the CLIs' own ``main`` on a 6-frame 48x48 scene
 with ``--device cpu``, at a narrow width: a wrapper narrows the NGP, the
@@ -133,9 +134,13 @@ def test_cli_flags_match_the_jax_clis(monkeypatch):
         main_nerf_torch.main(["scene", "--gui"])
     with pytest.raises(NotImplementedError, match="11.7"):
         main_torch.main(["scene", "--gui"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main_torch.main(["star_flower", "--encoder", "vertex", "--device",
-                         "cpu"])
+    # the vertex encoder and the light models are ported (test_cli_pipeline
+    # trains both); their flags reach the preset
+    args = main_torch.parse_args(["scene", "--encoder", "vertex",
+                                  "--iters_per_level", "5", "--light_model",
+                                  "Envmap"])
+    assert (args.encoder, args.iters_per_level, args.light_model) == (
+        "vertex", 5, "Envmap")
 
 
 def _asdict(x):

@@ -220,9 +220,15 @@ def test_sh_light_matches(setup):
         out_t = tsh.apply(lt, _t(geo), _t(nrm), _t(view), ct)
         for a, b, name in zip(out_t, out_j, ("full", "spec", "diff", "alb")):
             _close(a, b, 1e-2, msg=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsh.apply(lt, _t(geo), _t(nrm), _t(view), cfg_t,
-                  env_import=torch.zeros((9, 3)))
+    # an imported environment replaces the learned one (the imports'
+    # own parity, with visibility probes: tests/test_torch_lights.py)
+    imp = np.random.default_rng(5).normal(size=(9, 3)).astype(np.float32)
+    out_j = jsh.apply(lj, jnp.asarray(geo), jnp.asarray(nrm),
+                      jnp.asarray(view), cfg_j, env_import=jnp.asarray(imp))
+    out_t = tsh.apply(lt, _t(geo), _t(nrm), _t(view), cfg_t,
+                      env_import=_t(imp))
+    for a, b, name in zip(out_t, out_j, ("full", "spec", "diff", "alb")):
+        _close(a, b, 1e-2, msg="import " + name)
 
 
 @pytest.mark.parametrize("noisy", [False, True])
@@ -252,12 +258,13 @@ def test_mesh_field_apply_matches(setup, noisy):
 
 
 def test_mesh_field_unported_raise(setup):
-    """The vertex-feature encoder stays unported (item 8); mode 'none'
-    without frames and the imports run (their parity tests:
-    tests/test_torch_projection.py, tests/test_torch_texture.py,
-    tests/test_torch_shape_import.py).  Mode 'shape' without a 'field'
-    import raises, naming load_field (the JAX function fails inside the
-    normal net)."""
+    """Nothing of mesh_field is left unported: mode 'none' without frames
+    and the imports run (their parity tests: tests/test_torch_projection.py,
+    tests/test_torch_texture.py, tests/test_torch_shape_import.py), and so
+    does the vertex encoder (tests/test_torch_vertex_encoder.py), whose
+    init, as JAX's, needs the feature mesh's vertex count.  Mode 'shape'
+    without a 'field' import raises, naming load_field (the JAX function
+    fails inside the normal net)."""
     x = _t(setup["x"][:4])
     with pytest.raises(ValueError, match="load_field"):
         tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
@@ -265,9 +272,15 @@ def test_mesh_field_unported_raise(setup):
     out = tmf.apply(setup["pt"]["field"], setup["st"], x, setup["ct"].field,
                     no_noise=True)
     assert out.embed.shape[0] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="n_feature_vertices"):
         tmf.init(torch.Generator(), tmf.MeshFieldConfig(
             encoder_type="vertex"))
+    with pytest.raises(ValueError, match="n_feature_vertices"):
+        jmf.init(jax.random.PRNGKey(0), jmf.MeshFieldConfig(
+            encoder_type="vertex"))
+    vcfg = tmf.MeshFieldConfig(encoder_type="vertex", n_feature_vertices=10)
+    p = tmf.init(torch.Generator(), vcfg)
+    assert tuple(p["features_v"].shape) == (10, vcfg.feature_dim)
 
 
 def _assert_sigma_close(s_t, s_j):
@@ -329,19 +342,35 @@ def test_density_matches(setup):
 
 
 def test_curved_unported_raise(setup):
+    """Mode 'shape' without a 'field' import raises (naming load_field);
+    the viewer's options (a visual mode, the light rotation, an imported
+    environment) and the SG and Envmap light models, once raising, run:
+    with the identity rotation the frame is the plain one, and each light
+    model's init tree has the JAX init's shapes (their parity:
+    tests/test_torch_relight.py)."""
     ct = setup["ct"]
     args = (setup["pt"], setup["st"], _t(setup["x"][:4]), _t(setup["v"][:4]),
             ct)
     with pytest.raises(ValueError, match="load_field"):
         tcf.forward(*args, mode="shape")
+    frames = {k: v[:4] for k, v in setup["ft"].items()}
+    base = tcf.forward(*args, frames=frames)[1]
     for kw in (dict(visual_mode="UV"),
                dict(euler_rot=torch.eye(3)),
                dict(light_import={"env_import": torch.zeros((9, 3))})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcf.forward(*args, frames={k: v[:4] for k, v in
-                                       setup["ft"].items()}, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcf.init(torch.Generator(), tcf.CurvedFieldConfig(light_model="SG"))
+        out = tcf.forward(*args, frames=frames, **kw)[1]
+        assert out.shape == (4, 3) and torch.isfinite(out).all(), kw
+    assert torch.equal(tcf.forward(*args, frames=frames,
+                                   euler_rot=torch.eye(3))[1], base)
+    for light in ("SG", "Envmap"):
+        kw = dict(light_model=light, field=ct.field, hidden_dim=16,
+                  geo_feat_dim=7)
+        pt = tcf.init(torch.Generator(), tcf.CurvedFieldConfig(**kw))
+        pj = jcf.init(jax.random.PRNGKey(0), jcf.CurvedFieldConfig(**dict(
+            kw, field=jmf.MeshFieldConfig(**FIELD))))
+        assert jax.tree.map(lambda a: tuple(a.shape), pt["light"],
+                            is_leaf=torch.is_tensor) == jax.tree.map(
+            lambda a: tuple(a.shape), pj["light"]), light
 
 
 @pytest.mark.parametrize("dir_degree", [4, 0])

@@ -266,7 +266,7 @@ def test_survivor_pool_matches_jax(seed, cap, budget_per_ray):
 
 
 def test_unported_paths_raise(trainers):
-    _, tt = trainers
+    tj, tt = trainers
     pose = tt.dataset.poses[0]
     _, ct, _, rt = _configs()
     # a refresh without the anchor table runs the exact projection now;
@@ -282,16 +282,18 @@ def test_unported_paths_raise(trainers):
     finally:
         tt.rcfg = rcfg
     tcfg = tt.tcfg
-    # distillation is ported; progressive vertex levels are not
+    # progressive levels are ported: with the hash encoder, as in JAX, the
+    # schedule has no level to advance
     tt.tcfg = dataclasses.replace(tcfg, iters_per_level=100)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.train(1)
+        tt._maybe_update_level(100)
+        assert tt.fea_level == 0 and not tt.update_field_level()
     finally:
         tt.tcfg = tcfg
-    tt.visual_mode = "Nc"
+    # the visual modes are ported: the coarse-normal frame is JAX's
+    tt.visual_mode = tj.visual_mode = "Nc"
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.render_frame(pose)
+        _assert_frames_close(tt.render_frame(pose), tj.render_frame(
+            np.asarray(pose)))
     finally:
-        tt.visual_mode = "RGB"
+        tt.visual_mode = tj.visual_mode = "RGB"

@@ -531,7 +531,8 @@ def test_train_loop_and_unported_features(setup):
     assert out["loss"] == out["losses"][-1]
     assert int(tt.state.occ.iter_density) == 2 and tt.state.step == 9
     # the training features run (distillation without a teacher trains
-    # plain steps, as in the JAX trainer); progressive levels raise
+    # plain steps, as in the JAX trainer), and so do progressive levels
+    # (with the hash encoder, as in JAX, there is no level to advance)
     for change in (dict(distillation=True), dict(optimize_camera=True),
                    dict(optimize_gamma=True), dict(error_map=True)):
         tf = tct.CurvedTrainer(
@@ -540,9 +541,9 @@ def test_train_loop_and_unported_features(setup):
             dataclasses.replace(setup["tt_cfg"], **change), device="cpu",
             seed=5)
         assert np.isfinite(tf.train(1)["loss"]), change
-    tt.tcfg = dataclasses.replace(setup["tt_cfg"], iters_per_level=100)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.train(1)
+    tt.tcfg = dataclasses.replace(setup["tt_cfg"], iters_per_level=4)
+    assert np.isfinite(tt.train(1)["loss"])
+    assert tt.fea_level == 0 and tt.state.step == 10
     tt.tcfg = setup["tt_cfg"]
     # params replaced without their optimizer would train stale tensors
     tt.state.params = params_from_jax(setup["p"], device="cpu")

@@ -31,6 +31,8 @@ from nerf_texture_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from nerf_texture_tpu.models import curved_field as jax_curved_field
 from nerf_texture_tpu.models import mesh_field as jax_mesh_field
 from nerf_texture_tpu.models import normal_net as jax_normal_net
+from nerf_texture_tpu.models.lights import envmap as jax_envmap
+from nerf_texture_tpu.models.lights import sg as jax_sg
 from nerf_texture_tpu.models.lights import sh as jax_sh
 from nerf_texture_tpu.train import curved_trainer as jax_curved_trainer
 from nerf_texture_tpu_torch import kernels
@@ -48,7 +50,7 @@ from nerf_texture_tpu_torch.synthesis.quilting import QuiltingConfig
 from nerf_texture_tpu_torch.train.trainer import TrainConfig
 from nerf_texture_tpu_torch.utils.metrics import psnr
 from nerf_texture_tpu_torch.models import curved_field, mesh_field, normal_net
-from nerf_texture_tpu_torch.models.lights import sh
+from nerf_texture_tpu_torch.models.lights import envmap, sg, sh
 from nerf_texture_tpu_torch.train import curved_trainer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -171,6 +173,8 @@ def _fields(cls):
     (curved_trainer.CurvedTrainConfig,
      jax_curved_trainer.CurvedTrainConfig),
     (sh.SHLightConfig, jax_sh.SHLightConfig),
+    (sg.SGLightConfig, jax_sg.SGLightConfig),
+    (envmap.EnvmapLightConfig, jax_envmap.EnvmapLightConfig),
     (normal_net.NormalNetConfig, jax_normal_net.NormalNetConfig)])
 def test_curved_config_fields_match_jax(ours, theirs):
     assert _fields(ours) == _fields(theirs)
@@ -198,6 +202,15 @@ def test_curved_bench_configs_convert():
         j.field_name)
     assert dataclasses.asdict(t.field.normal_cfg) == \
         dataclasses.asdict(j.field.normal_cfg)
+    # the other light models' and the vertex encoder's derived configs
+    assert dataclasses.asdict(t.sg_cfg) == dataclasses.asdict(j.sg_cfg)
+    assert dataclasses.asdict(t.env_cfg) == dataclasses.asdict(j.env_cfg)
+    v = dict(encoder_type="vertex", n_feature_vertices=642)
+    jv = jax_mesh_field.MeshFieldConfig(**v)
+    tv = mesh_field.MeshFieldConfig(**v)
+    assert (tv.encoder_f_out_dim, tv.embed_dim) == (jv.encoder_f_out_dim,
+                                                    jv.embed_dim)
+    assert mesh_field.levels_vnum(tv) == jax_mesh_field.levels_vnum(jv)
 
 
 def test_bench_configs_convert():
