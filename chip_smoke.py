@@ -20,15 +20,17 @@ with the 'shape' and 'unhash' imports (``field_io``); then the two
 training CLIs on a scene directory (``main_nerf_torch.py``,
 ``main_torch.py``); then relighting (the SG and Envmap light models,
 imported environments, the light modes and rotation) and the vertex
-encoder with its progressive levels.
-Phases, run in the order 1-6, 14, 7-10, then 11-13 and 15 at once: after
-phase 10 the CLIs of phases 13 and 15 start as subprocesses and the rest
-of phase 15 as a worker process (``chip_smoke.py --worker relight``),
-all on the same card beside phases 11-13 of this process, which then
-reads their results (their walls and rates are taken under that load,
-and phase 14's kernel times before any of it).  Any failure ends the
-run with a non-zero exit and no result line, and stops every process
-it started:
+encoder with its progressive levels; then the viewer (``ViewerApp`` and
+``serve``, in this process and through ``main_torch.py --gui``), a scene
+of JPEG frames and ``main_nerf_torch.py --bound 2 --dt_gamma 1/128``.
+Phases, run in the order 1-6, 14, 7-10, then 16's viewer, 11-13, 15 and
+16 at once: after phase 10 the CLIs of phases 13 and 15 start as
+subprocesses and the rest of phases 15 and 16 as worker processes
+(``chip_smoke.py --worker relight`` and ``--worker viewer``), all on the
+same card beside phases 11-13 of this process, which then reads their
+results (their walls and rates are taken under that load, and phase 14's
+kernel times before any of it).  Any failure ends the run with a non-zero
+exit and no result line, and stops every process it started:
 
   1. device:  a CUDA card is required (there is no CPU path); prints the
               card's name and power limit as nvidia-smi gives them;
@@ -134,7 +136,7 @@ it started:
               and its wrapper's host time a call, at [16384, 24] CDF cap
               5 and cap 4 and top-k cap 8;
  15. relight and vertex: at the bench's curved width, the SG and the
-              Envmap light models (``light_model``) each trained 700
+              Envmap light models (``light_model``) each trained 500
               steps from seeded weights: it/s, peak memory, the live
               800x800 frame through proxy_select_cdf equal bit for bit to
               its plain-selection frame, PSNR at the novel pose gated at
@@ -155,17 +157,48 @@ it started:
               at once on phase 13's scene (logs in chiprun_out/cli_sg.log,
               cli_vertex.log).  All but the SH import run in the worker
               process (its output in chiprun_out/relight_worker.log and
-              .err; this process prints its lines).
+              .err; this process prints its lines);
+ 16. viewer and scenes: after phase 10 (and the SH import), in this
+              process beside the CLIs and workers, before phase 11,
+              ``ViewerApp`` + ``serve(block=False)`` on 127.0.0.1
+              around the trained field (training and the dynamic
+              resolution off): /status, the stream's frames/s at the
+              downscaled and the full tier, an orbit through /control
+              whose next frame streams as the bytes the port's encoder
+              makes of ``app.render()`` (and differs from the frame
+              before), launches == chunks; through /control the growing
+              step (``set_dt_gamma(1/128)``, a parity pool frame), the
+              crop that halves x, ``toggle_baked`` and ``take_photo``.
+              Then a worker process (``--worker viewer``; output in
+              chiprun_out/viewer_worker.log): phase 13's scene written
+              again as JPEG frames by the port's encoder (quality 95,
+              4:4:4), loaded by NeRFDataset and held against the PNG scene
+              (PSNR >= 40 dB); ``main_nerf_torch.py --bound 2 --dt_gamma
+              0.0078125 --iters 1500 --save_mesh`` on phase 13's scene
+              (its RGBA frames: see B2_ITERS's note) (two cascades, a
+              finite eval 3 dB above its step-0 frame and at most 3 dB
+              below phase 13's NGP CLI, the pool path's eval frames
+              launching neither kernel, the mesh on the sphere; its peak
+              memory printed by a runpy wrapper; log
+              chiprun_out/cli_bound2.log); and ``main_torch.py --gui`` on
+              phase 13's undistilled workspace once its checkpoint is
+              saved (/status while it trains, 10 stream parts, the step
+              advancing, ``stop_training`` and ``switch_visual_mode``
+              through /control, exit 0 on SIGTERM; log
+              chiprun_out/cli_gui.log).
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
 (nvcc) and no network; the kernel build goes to build/kernels/, the
 texture files to build/texture/, the surface files to build/surfaces/,
 the CLIs' scene and workspace to build/cli/, phase 15's sky and CLI
-workspaces to build/relight/.  ``--only entry_points`` runs phases 1, 2
-and 13 alone, ``--only relight`` phases 1, 2 and 15 in this process
-(with an SH arm of its own for the imports, and the CLIs on a scene and
-template written for them); neither prints result lines.
+workspaces to build/relight/, phase 16's files to build/viewer/.
+``--only entry_points`` runs phases 1, 2 and 13 alone, ``--only relight``
+phases 1, 2 and 15 in this process (with an SH arm of its own for the
+imports, and the CLIs on a scene and template written for them), ``--only
+viewer`` phases 1, 2 and 16 in this process (the viewer on a curved field
+trained 48 steps, --gui on a 50-step undistilled run); none prints result
+lines.
 """
 
 from __future__ import annotations
@@ -1644,17 +1677,20 @@ class Background:
         return self._out
 
 
-def cli_run(args: list[str], name: str, timeout: float = 900) -> tuple:
-    """Run a CLI of the repo as a subprocess, its output (stdout and
-    stderr) in chiprun_out/<name>.log; returns (exit code, output, wall
-    s).  Safe on a Background thread: it checks nothing."""
+def cli_run(args: list[str], name: str, timeout: float = 900,
+            nice: int = 0) -> tuple:
+    """Run a CLI of the repo as a subprocess at host priority ``nice``, its
+    output (stdout and stderr) in chiprun_out/<name>.log; returns (exit
+    code, output, wall s).  Safe on a Background thread: it checks
+    nothing."""
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", f"{name}.log")
     t0 = time.perf_counter()
     with open(path, "w") as log:
         proc = subprocess.Popen([sys.executable] + args, stdout=log,
                                 stderr=subprocess.STDOUT, text=True,
-                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+                                env={**os.environ, "PYTHONUNBUFFERED": "1"},
+                                preexec_fn=lambda: os.nice(nice))
         CHILDREN.append(proc)
         try:
             code = proc.wait(timeout=timeout)
@@ -1978,12 +2014,13 @@ def entry_points_phase(dev, card: str, clis: Background) -> dict:
           f"(not gated); camera residual {ratio:.3f} of the turn ({card})")
     check(ngp_psnr >= CLI_PSNR_MIN, f"NGP CLI PSNR {ngp_psnr}")
     check(curved_psnr >= CLI_PSNR_MIN, f"curved CLI PSNR {curved_psnr}")
-    return launches
+    return launches, ngp_psnr
 
 
 # the relighting and vertex-encoder phase (15) at the bench's curved
 # width (bench.py:340-367): the SG and Envmap arms at CurvedFieldConfig's
-# own num_lgt_sgs 8 and env_res 16, bench.py's 700 steps each, gated at
+# own num_lgt_sgs 8 and env_res 16, 500 steps each (bench.py's 700, cut
+# when phase 16 came, for the smoke's time), gated at
 # RELIGHT_GAIN dB above the arm's step-0 frame at the novel pose (no JAX
 # cell exists for these lights; the CPU lockstep tests carry parity); an
 # imported environment, a 64x128 equirect PNG of an analytic sky; the
@@ -1995,7 +2032,7 @@ def entry_points_phase(dev, card: str, clis: Background) -> dict:
 # sphere, an icosphere (phase 13's remeshed NGP template of ~98k vertices
 # would add ~25 s of host set-up a run)
 RELIGHT_DIR = os.path.join("build", "relight")
-RELIGHT_STEPS, RELIGHT_GAIN = 700, 3.0
+RELIGHT_STEPS, RELIGHT_GAIN = 500, 3.0
 SKY_H, SKY_W = 64, 128
 VERTEX_FIELD = dict(encoder_type="vertex", level_num=3, base_vnum=4096,
                     target_vnum=128 ** 2)
@@ -2058,7 +2095,7 @@ def relit_frame(tr, pose, name: str, card: str, reference=None) -> dict:
 
 
 def relight_arm(dev, card: str, ds, light: str, field_state, share=None):
-    """The SG or Envmap arm at the bench's curved width: 700 steps from
+    """The SG or Envmap arm at the bench's curved width: RELIGHT_STEPS from
     seeded weights, the live frame at the novel pose (PSNR gated at
     RELIGHT_GAIN dB above the step-0 frame), the light modes and a
     rotated light.  Returns (trainer, launches of its frames)."""
@@ -2440,21 +2477,546 @@ def relight_phase(dev, card: str, ds, own_sh: bool) -> dict:
     return cdf
 
 
-def start_relight_worker() -> Background:
-    """Phase 15 but its CLIs in a process of its own on the same card
-    (``chip_smoke.py --worker relight``), on a Background thread: its
-    standard output goes to chiprun_out/relight_worker.log, its errors
-    to relight_worker.err.  Returns (exit code, output, errors, wall s)."""
+def relight_from_worker(worker: Background) -> dict:
+    """The relight worker's result (``start_worker('relight')``): its
+    phase-15 lines printed here; returns the launches of its paths."""
+    return from_worker(worker, "relight", WORKER_START)["relight_launches"]
+
+
+# the viewer and scenes larger than the unit cube (phase 16).  The JPEG
+# copy of phase 13's scene at quality 95 in 4:4:4 (PIL's subsampling=0:
+# at PIL's default 4:2:0 this scene's colour edges cap the PSNR at 37.3
+# dB, measured with PIL on the CPU), its decode held against the PNG
+# scene at JPEG_PSNR_MIN.  main_nerf_torch.py --bound 2 --dt_gamma 1/128
+# for B2_ITERS steps on phase 13's scene, whose RGBA frames train with a
+# random background (scripts/torch_bound_probe.py: on the JPEG copy,
+# RGB on white, white fog fills the grid, which stays 99.6% occupied
+# after 3000 steps, and the inference pool's 24 samples a ray decimate
+# it to 12-15 dB while the dense march reads 27.5-30.7 dB; the PNG
+# scene's grid empties at ~1,440 steps, when its decay takes the
+# untrained cells under the threshold, and the pool reads 27.4 dB at
+# 1500 steps against 22.4 at 1000), its eval gated at B2_GAIN dB above
+# its step-0 frame and at most B2_SLACK dB below phase 13's NGP CLI, its
+# mesh on the sphere as phase 8's; the viewer in this process on phase
+# 10's trained field (800x800, STREAM_PARTS frames a tier);
+# main_torch.py --gui on phase 13's undistilled workspace, GUI_PARTS
+# stream parts while it trains
+VIEWER_DIR = os.path.join("build", "viewer")
+JPEG_SCENE_QUALITY, JPEG_SCENE_SUBSAMPLING = 95, "4:4:4"
+JPEG_PSNR_MIN = 40.0
+B2_BOUND, B2_DT_GAMMA, B2_ITERS, B2_EVAL = 2.0, 0.0078125, 1500, 750
+B2_GAIN, B2_SLACK = 3.0, 3.0
+STREAM_PARTS, GUI_PARTS = 5, 10
+STREAM_QUALITY = 85
+VIEWER_WORKER_START = "viewer worker: start"
+# a CLI run through runpy with its peak device memory printed at exit
+# (the CLI itself unchanged)
+_PEAK_WRAPPER = """
+import atexit, runpy, sys, torch
+atexit.register(lambda: print("peak device memory: %.1f MiB"
+                              % (torch.cuda.max_memory_allocated() / 2**20),
+                              flush=True))
+sys.argv = {argv!r}
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def _http(url: str, body: dict | None = None, timeout: float = 300):
+    """(status, bytes) of a GET, or of a JSON POST of ``body``."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _stream_parts(url: str, n: int, timeout: float = 300) -> list:
+    """n consecutive parts of ``url``/stream: [(JPEG bytes, host s when
+    read)]."""
+    import urllib.request
+
+    parts = []
+    with urllib.request.urlopen(url + "/stream", timeout=timeout) as s:
+        for _ in range(n):
+            head = b""
+            while b"\r\n\r\n" not in head:
+                c = s.read(1)
+                check(len(c) == 1, "the MJPEG stream ended")
+                head += c
+            size = int(head.split(b"Content-Length: ")[1].split(b"\r\n")[0])
+            parts.append((s.read(size), time.perf_counter()))
+    return parts
+
+
+def _wait_frames(app, n: int, timeout: float = 300):
+    """Until the viewer loop has rendered n more frames."""
+    f0, t0 = app.frames, time.perf_counter()
+    while app.frames < f0 + n:
+        check(time.perf_counter() - t0 < timeout,
+              f"the viewer loop rendered {app.frames - f0} frames in "
+              f"{timeout} s")
+        time.sleep(0.02)
+
+
+def quick_curved(dev, ds):
+    """A curved field at the bench's curved width from seeded weights,
+    one refresh and 48 steps (``--only viewer``'s field)."""
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = CurvedTrainer(ds, mesh_field.make_state(MeshProjector(
+        make_icosphere(4, radius=0.5), device=dev)),
+        CurvedFieldConfig(field=MeshFieldConfig(), light_model="SH"),
+        RenderConfig(**CURVED_RENDER), CurvedTrainConfig(**CURVED_TRAIN),
+        seed=7, device=dev)
+    tr.initialize_states(1)
+    tr.train(48)
+    return tr
+
+
+def viewer_phase(dev, card: str, tr) -> dict:
+    """Phase 16's viewer in this process: ``ViewerApp`` + ``serve`` on
+    127.0.0.1 (a free port) around the trained ``tr``, training off and
+    the resolution frozen: /status, the stream's rate at the downscaled
+    and the full tier, an orbit through /control whose next whole frame
+    streams as the bytes ``data.jpeg.encode`` makes of ``app.render()``
+    and differs from the frame before; then through /control the growing
+    step (a parity pool frame), the crop that halves x, the baked atlas
+    and take_photo.  Returns the selection launches of its frames."""
+    from nerf_texture_tpu_torch.data import jpeg
+    from nerf_texture_tpu_torch.data.images import read_png
+    from nerf_texture_tpu_torch.ops.proxy_select import proxy_select_cdf
+    from nerf_texture_tpu_torch.viewer import ViewerApp, serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # curved: f32
+    os.makedirs(VIEWER_DIR, exist_ok=True)
+    H, W = tr.H, tr.W
+    app = ViewerApp(tr, W=W, H=H)
+    app.set_dynamic_resolution(False, tier=3)
+    httpd, stop = serve(app, host="127.0.0.1", port=0, block=False)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    launches = {}
+    try:
+        status = json.loads(_http(url + "/status")[1])
+        check(sorted(status) == ["downscale", "metrics", "steps_per_frame",
+                                 "training", "visual_mode"]
+              and status["training"] is False and status["downscale"] == 1,
+              f"viewer /status {status}")
+        rates, last = {}, {}
+        for tier in (0, 3):
+            _http(url + "/control", {"action": "set_dynamic_resolution",
+                                     "on": False, "tier": tier})
+            _wait_frames(app, 3)
+            parts = _stream_parts(url, STREAM_PARTS + 1)
+            rates[tier] = STREAM_PARTS / (parts[-1][1] - parts[0][1])
+            last[tier] = parts[-1][0]
+        pre = jpeg.decode(last[3])
+        check(pre.shape == (H, W, 3), f"stream part of shape {pre.shape}")
+        _http(url + "/control", {"action": "orbit", "dx": 60, "dy": 25})
+        _wait_frames(app, 3)            # a frame wholly after the orbit
+        part = _stream_parts(url, 1)[0][0]
+        stop.set()                      # the loop ends after its frame
+        n = -1
+        while n != app.frames:
+            n = app.frames
+            time.sleep(1.5)
+        torch.cuda.synchronize()
+        proxy_select_cdf.launches = 0
+        t0 = time.perf_counter()
+        img = app.render()
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t0) * 1e3
+        launches["viewer_live"] = proxy_select_cdf.launches
+        full = dict(app.last_frame)
+        check(0 < launches["viewer_live"] == full["chunks"],
+              f"viewer frame: {launches['viewer_live']} proxy_select_cdf "
+              f"launches for {full['chunks']} chunks")
+        t0 = time.perf_counter()
+        ref = jpeg.encode(img, quality=STREAM_QUALITY)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = jpeg.decode(part)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        check(part == ref, "the streamed part differs from the encoder "
+              "applied to app.render() at the same pose")
+        check(not np.array_equal(got, pre), "the orbit did not change the "
+              "streamed frame")
+        print(f"viewer: {H}x{W} on phase 10's trained field, training off: "
+              f"stream {rates[3]:.2f} frames/s at the full tier, "
+              f"{rates[0]:.2f} at downscale 4; a frame {render_ms:.1f} ms "
+              f"({full['live']} live rays, {full['chunks']} chunks = "
+              f"proxy_select_cdf launches), JPEG encode {encode_ms:.1f} ms "
+              f"({len(ref)} bytes, quality {STREAM_QUALITY}), decode "
+              f"{decode_ms:.1f} ms; the part after the orbit equals "
+              f"encode(app.render()) byte for byte and differs from the "
+              f"frame before ({card})")
+
+        _http(url + "/control", {"action": "set_dt_gamma", "v": 1 / 128})
+        check(tr.rcfg.dt_gamma == 1 / 128, "set_dt_gamma did not reach rcfg")
+        pose = app.camera.pose
+        tr.render_frame(pose, parity=True)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = tr.render_frame(pose, parity=True)
+        torch.cuda.synchronize()
+        g_ms = (time.perf_counter() - t0) * 1e3
+        # the trained curved shading is not clamped: a pool frame may
+        # hold slightly negative pixels (the viewer clips them)
+        img_g = g["image"]
+        check(tuple(img_g.shape) == (H, W, 3)
+              and bool(torch.isfinite(img_g).all())
+              and 0 < g["live"] < H * W
+              and float(g["weights_sum"].max()) > 0.05,
+              f"viewer: dt_gamma pool frame: shape {tuple(img_g.shape)}, "
+              f"live {g['live']}")
+        _http(url + "/control", {"action": "set_dt_gamma", "v": 0.0})
+        c = tr.render_frame(pose, parity=True)
+        g_psnr = psnr(img_g.cpu().numpy(), c["image"].cpu().numpy())
+        print(f"viewer: set_dt_gamma(1/128): parity pool frame {g_ms:.1f} "
+              f"ms, {g['live']} live rays, {g['chunks']} chunks, pixels in "
+              f"[{float(img_g.min()):.4f}, {float(img_g.max()):.4f}] "
+              f"(constant step: [{float(c['image'].min()):.4f}, "
+              f"{float(c['image'].max()):.4f}]); PSNR {g_psnr:.2f} dB "
+              f"against the constant step's frame ({card})")
+
+        _http(url + "/control", {"action": "set_aabb", "dim": 0, "v": 0.0})
+        proxy_select_cdf.launches = 0
+        half = app.render()
+        launches["viewer_crop"] = proxy_select_cdf.launches
+        crop = dict(app.last_frame)
+        check(0 < crop["live"] < full["live"]
+              and launches["viewer_crop"] == crop["chunks"],
+              f"the crop that halves x: {crop} against {full}")
+        _http(url + "/control", {"action": "set_aabb", "dim": 0, "v": -1.0})
+        check(list(tr.crop_aabb) == [-1, -1, -1, 1, 1, 1],
+              f"crop {tr.crop_aabb}")
+        tr.crop_aabb = None
+
+        _http(url + "/control", {"action": "toggle_baked"})
+        check(app.baked, "toggle_baked did not switch the baked frames on")
+        app.render()                                        # the bake
+        torch.cuda.synchronize()
+        proxy_select_cdf.launches = 0
+        t0 = time.perf_counter()
+        baked = app.render()
+        torch.cuda.synchronize()
+        baked_ms = (time.perf_counter() - t0) * 1e3
+        launches["viewer_baked"] = proxy_select_cdf.launches
+        check(0 < launches["viewer_baked"] == app.last_frame["chunks"],
+              f"viewer baked frame: {launches['viewer_baked']} launches for "
+              f"{app.last_frame}")
+        _http(url + "/control", {"action": "toggle_baked"})
+        photo = os.path.join(VIEWER_DIR, "photo.png")
+        _http(url + "/control", {"action": "take_photo", "path": photo})
+        check(read_png(photo).shape == (H, W, 3), "take_photo's PNG")
+        print(f"viewer: crop x >= 0: {crop['live']} of {full['live']} live "
+              f"rays, PSNR {psnr(half / 255.0, img / 255.0):.2f} dB against "
+              f"the whole frame; baked frame {baked_ms:.1f} ms "
+              f"({launches['viewer_baked']} launches = chunks), PSNR "
+              f"{psnr(baked / 255.0, img / 255.0):.2f} dB against the live "
+              f"one; take_photo wrote {photo} ({card})")
+    finally:
+        stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+    return launches
+
+
+def jpeg_scene(card: str):
+    """Phase 13's scene written again with JPEG frames by the port's
+    encoder; loaded with NeRFDataset and held against the PNG scene."""
+    import shutil
+
+    from nerf_texture_tpu_torch.data import jpeg
+    from nerf_texture_tpu_torch.data.images import read_png
+    from nerf_texture_tpu_torch.data.provider import NeRFDataset
+
+    src = os.path.join(CLI_DIR, "scene")
+    dst = os.path.join(VIEWER_DIR, "scene_jpeg")
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(os.path.join(dst, "images"))
+    with open(os.path.join(src, "transforms.json")) as f:
+        meta = json.load(f)
+    enc_s, nbytes, paths = 0.0, 0, []
+    for fr in meta["frames"]:
+        rgba = read_png(os.path.join(src, fr["file_path"])).astype(
+            np.float32) / 255.0
+        rgb = rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+        u8 = np.round(rgb * 255.0).astype(np.uint8)
+        fr["file_path"] = os.path.splitext(fr["file_path"])[0] + ".jpg"
+        t0 = time.perf_counter()
+        data = jpeg.encode(u8, quality=JPEG_SCENE_QUALITY,
+                           subsampling=JPEG_SCENE_SUBSAMPLING)
+        enc_s += time.perf_counter() - t0
+        nbytes += len(data)
+        paths.append(os.path.join(dst, fr["file_path"]))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    with open(os.path.join(dst, "transforms.json"), "w") as f:
+        json.dump(meta, f)
+    dec = []
+    for p in paths:
+        t0 = time.perf_counter()
+        jpeg.read_jpeg(p)
+        dec.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ds_j = NeRFDataset(dst, split="train", scale=0.33)
+    load_s = time.perf_counter() - t0
+    ds_p = NeRFDataset(src, split="train", scale=0.33)
+    check(ds_j.images.shape[:3] == ds_p.images.shape[:3]
+          and ds_j.images.shape[-1] == 3, f"JPEG scene images "
+          f"{ds_j.images.shape} against {ds_p.images.shape}")
+    check(np.array_equal(ds_j.poses, ds_p.poses)
+          and np.array_equal(ds_j.intrinsics, ds_p.intrinsics),
+          "the JPEG scene's poses or intrinsics differ from the PNG one's")
+    gt = ds_p.images.astype(np.float32) / 255.0
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+    ps = [psnr(ds_j.images[k].astype(np.float32) / 255.0, gt[k])
+          for k in range(len(gt))]
+    print(f"scenes: phase 13's scene as {len(paths)} JPEG frames "
+          f"{ds_j.H}x{ds_j.W} (quality {JPEG_SCENE_QUALITY}, "
+          f"{JPEG_SCENE_SUBSAMPLING}): encode {enc_s / len(paths):.4f} s a "
+          f"frame, {nbytes / len(paths) / 1024:.1f} KiB a frame; decode "
+          f"{np.median(dec):.4f} s a frame (median, {min(dec):.4f}-"
+          f"{max(dec):.4f}); NeRFDataset load {load_s:.3f} s "
+          f"({ds_j.num_frames} training frames); PSNR against the PNG "
+          f"scene {min(ps):.2f}-{max(ps):.2f} dB (gate >= {JPEG_PSNR_MIN}) "
+          f"({card})")
+    check(min(ps) >= JPEG_PSNR_MIN, f"JPEG scene PSNR {min(ps)} dB")
+
+
+def _sphere_in_scene(scene: str):
+    """(centre, radius) of the synthetic sphere (the origin, r 0.5 in the
+    written poses) in the coordinates NeRFDataset(scene, scale=0.33) gives
+    the CLIs: the similarity that maps the written camera centres onto the
+    loaded ones."""
+    from nerf_texture_tpu_torch.data.provider import NeRFDataset
+
+    raw = NeRFDataset(scene, split="train", scale=1.0, normalize=False)
+    ds = NeRFDataset(scene, split="train", scale=0.33)
+    cw, cl = raw.poses[:, :3, 3], ds.poses[:, :3, 3]
+    dw, dl = cw - cw.mean(0), cl - cl.mean(0)
+    a = float(np.sum(dw * dl) / np.sum(dw * dw))
+    b = cl.mean(0) - a * cw.mean(0)
+    fit = float(np.abs(a * cw + b - cl).max())
+    check(fit < 1e-4, f"the scene's camera centres are not a similarity "
+          f"of the written ones (residual {fit})")
+    return b, 0.5 * a
+
+
+def bound2_cli(dev, card: str, scene: str) -> dict:
+    """``main_nerf_torch.py --bound 2 --dt_gamma 1/128 --save_mesh`` on
+    ``scene`` (its step-0 frame rendered here by the same trainer at step
+    0); returns its PSNR and eval launches."""
+    import shutil
+
+    from scipy.spatial import cKDTree
+
+    from nerf_texture_tpu_torch.data.provider import NeRFDataset
+    from nerf_texture_tpu_torch.geometry.mesh import load_obj
+    from nerf_texture_tpu_torch.models.ngp import NGPConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train import trainer as ckpt
+    from nerf_texture_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    ws = os.path.join(VIEWER_DIR, "ws_b2")
+    shutil.rmtree(ws, ignore_errors=True)
+    ds = NeRFDataset(scene, split="train", scale=0.33)
+    tr0 = Trainer(ds, NGPConfig(bound=B2_BOUND),
+                  RenderConfig.for_bound(B2_BOUND, dt_gamma=B2_DT_GAMMA,
+                                         max_steps=384),
+                  TrainConfig(lr=1e-2, total_steps=B2_ITERS, num_rays=4096),
+                  seed=0, device=dev)
+    psnr0 = tr0.eval_psnr([0])
+    del tr0
+    torch.cuda.empty_cache()
+    argv = ["main_nerf_torch.py", scene, "--workspace", ws, "--iters",
+            str(B2_ITERS), "--eval_interval", str(B2_EVAL), "--bound",
+            str(B2_BOUND), "--dt_gamma", str(B2_DT_GAMMA), "--save_mesh"]
+    # below phase 13's CLI chain, which holds the smoke's wall: this run
+    # has slack beside it
+    code, out, wall = cli_run(["-c", _PEAK_WRAPPER.format(argv=argv)],
+                              "cli_bound2", nice=10)
+    check(code == 0, f"main_nerf_torch.py --bound 2: exit {code}: "
+          f"{out[-3000:]}")
+    for ln in (_lines(out, "setup:") + _lines(out, "[")
+               + _lines(out, "timing:") + _lines(out, "checkpoint:")
+               + _lines(out, "mesh:") + _lines(out, "peak")):
+        print(f"  bound-2 cli: {ln}")
+    evals = _evals(out)
+    check([e[0] for e in evals] == list(range(B2_EVAL, B2_ITERS + 1,
+                                              B2_EVAL))
+          and all(np.isfinite(e[1]) and np.isfinite(e[2]) for e in evals),
+          f"bound-2 CLI eval lines {evals}")
+    b2_psnr = evals[-1][2]
+    raw = ckpt.read_checkpoint(os.path.join(ws, "checkpoints", "ngp"))
+    shape = tuple(raw["occ"]["density"].shape)
+    check(int(raw["step"]) == B2_ITERS and shape == (2, 128 ** 3),
+          f"bound-2 checkpoint: step {int(raw['step'])}, grid {shape}")
+    occ = raw["occ"]["occ"].reshape(2, -1).numpy()
+    launches = _select_launches(out)
+    check(launches == (0, 0), f"bound-2 eval frames launched the selection "
+          f"kernels {launches}: a 2-cascade grid takes the pool path")
+    mesh = load_obj(os.path.join(ws, "meshes", "ngp_mesh.obj"))
+    check(len(mesh.faces) > 0, "the bound-2 mesh is empty")
+    centre, radius = _sphere_in_scene(scene)
+    v = mesh.vertices.reshape(-1, 3) - centre
+    k = np.arange(NGP_MESH_PROBES) + 0.5
+    z = 1.0 - 2.0 * k / NGP_MESH_PROBES
+    a = np.pi * (1.0 + 5.0 ** 0.5) * k
+    probes = radius * np.stack([np.sqrt(1 - z * z) * np.cos(a),
+                                np.sqrt(1 - z * z) * np.sin(a), z], -1)
+    cover = (float(np.mean(cKDTree(v).query(probes)[0] <= NGP_MESH_TOL))
+             if len(v) else 0.0)
+    off = np.abs(np.linalg.norm(v, axis=-1) - radius)
+    print(f"scenes: main_nerf_torch.py --bound {B2_BOUND:g} --dt_gamma "
+          f"{B2_DT_GAMMA} on {scene}: exit 0 in {wall:.1f} s; grid "
+          f"{shape} ({int(occ[0].sum())} + {int(occ[1].sum())} occupied "
+          f"cells in levels 0 and 1); PSNR {b2_psnr:.2f} dB after "
+          f"{B2_ITERS} steps from {psnr0:.2f} dB at step 0 (gate +"
+          f"{B2_GAIN}); eval frames launched neither kernel (the pool "
+          f"path); mesh {len(mesh.vertices)} vertices, the sphere (r "
+          f"{radius:.4f} in the scene's coordinates) covered at "
+          f"{100 * cover:.1f}% of {NGP_MESH_PROBES} points within "
+          f"{NGP_MESH_TOL} (gate >= {100 * NGP_MESH_COVER:.0f}%), "
+          f"{100 * np.mean(off <= NGP_MESH_TOL):.1f}% of the vertices near "
+          f"it ({card})")
+    check(b2_psnr >= psnr0 + B2_GAIN, f"bound-2 PSNR {b2_psnr} dB from "
+          f"{psnr0} dB at step 0")
+    check(cover >= NGP_MESH_COVER, f"the bound-2 mesh covers {cover} of "
+          f"the sphere")
+    return {"psnr": b2_psnr, "psnr0": psnr0,
+            "launches": {"bound2_cli_eval": launches}}
+
+
+def _log_has(path: str, text: str) -> bool:
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        return text in f.read()
+
+
+def gui_cli(card: str, ws: str, plain_iters: int) -> None:
+    """``main_torch.py <scene> --gui`` on the undistilled workspace once its
+    run has saved its checkpoint: /status while it trains, GUI_PARTS
+    stream parts (the step advances), stop_training and
+    switch_visual_mode through /control, exit 0 on SIGTERM."""
+    from nerf_texture_tpu_torch.data import jpeg
+
+    plain_log = os.path.join("chiprun_out", "cli_curved_plain.log")
+    t0 = time.perf_counter()
+    while not _log_has(plain_log, f"checkpoint: saved step {plain_iters}"):
+        check(not _log_has(plain_log, "Traceback"),
+              "the undistilled CLI failed; no workspace for --gui")
+        check(time.perf_counter() - t0 < 1000, "no undistilled checkpoint")
+        time.sleep(1.0)
+    waited = time.perf_counter() - t0
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log_p = os.path.join("chiprun_out", "cli_gui.log")
+    t0 = time.perf_counter()
+    with open(log_p, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "main_torch.py", os.path.join(CLI_DIR, "scene"),
+             "--workspace", ws, "--gui", "--port", str(port)], stdout=log,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    CHILDREN.append(proc)
+    while not _log_has(log_p, "[viewer] serving on"):
+        check(proc.poll() is None, f"main_torch.py --gui exited "
+              f"{proc.returncode}: {open(log_p).read()[-3000:]}")
+        check(time.perf_counter() - t0 < 600, "--gui never served")
+        time.sleep(0.5)
+    up_s = time.perf_counter() - t0
+    check(_log_has(log_p, f"loaded step {plain_iters}"),
+          "main_torch.py --gui did not load the undistilled checkpoint")
+    url = f"http://127.0.0.1:{port}"
+    while True:
+        status = json.loads(_http(url + "/status")[1])
+        if "step" in status["metrics"]:
+            break
+        check(time.perf_counter() - t0 < 900, "--gui never trained a frame")
+        time.sleep(0.5)
+    check(status["training"] is True, f"--gui /status {status}")
+    step1 = status["metrics"]["step"]
+    parts = _stream_parts(url, GUI_PARTS)
+    for data, _ in parts:
+        check(jpeg.decode(data).ndim == 3, "a --gui stream part")
+    fps = (GUI_PARTS - 1) / (parts[-1][1] - parts[0][1])
+    status = json.loads(_http(url + "/status")[1])
+    step2 = status["metrics"]["step"]
+    check(step2 > step1, f"--gui: the step did not advance ({step1} -> "
+          f"{step2})")
+    check(_http(url + "/control", {"action": "stop_training"})[0] == 200,
+          "stop_training")
+    check(json.loads(_http(url + "/status")[1])["training"] is False,
+          "--gui still training after stop_training")
+    check(_http(url + "/control", {"action": "switch_visual_mode"})[0]
+          == 200, "switch_visual_mode")
+    mode = json.loads(_http(url + "/status")[1])["visual_mode"]
+    check(mode == "UV", f"--gui visual mode {mode}")
+    proc.send_signal(signal.SIGTERM)
+    code = proc.wait(timeout=120)
+    wall = time.perf_counter() - t0
+    out = open(log_p).read()
+    for ln in _lines(out, "setup:") + _lines(out, "checkpoint:"):
+        print(f"  gui cli: {ln}")
+    check(code == 0, f"main_torch.py --gui ended {code} on SIGTERM: "
+          f"{out[-3000:]}")
+    print(f"scenes: main_torch.py --gui on the undistilled workspace "
+          f"(waited {waited:.1f} s for its checkpoint): serving after "
+          f"{up_s:.1f} s, loaded step {plain_iters}; while training "
+          f"{GUI_PARTS} stream parts at {fps:.2f} frames/s, step "
+          f"{step1:.0f} -> {step2:.0f}; stop_training and "
+          f"switch_visual_mode ({mode}) through /control; exit 0 on "
+          f"SIGTERM after {wall:.1f} s ({card})")
+
+
+def scenes_phase(dev, card: str, plain_iters: int) -> dict:
+    """Phase 16 but the viewer in the smoke's process: the JPEG scene, the
+    bound-2 CLI and the --gui CLI."""
+    t0 = time.perf_counter()
+    os.makedirs(VIEWER_DIR, exist_ok=True)
+    jpeg_scene(card)
+    # the bound-2 CLI beside --gui, which waits for phase 13's workspace
+    b2 = Background(lambda: bound2_cli(dev, card,
+                                       os.path.join(CLI_DIR, "scene")))
+    gui_cli(card, os.path.join(CLI_DIR, "ws_plain"), plain_iters)
+    res = b2.result()
+    print(f"scenes: {time.perf_counter() - t0:.1f} s ({card})")
+    return res
+
+
+def start_worker(kind: str, nice: int) -> Background:
+    """Phase ``kind`` (relight: 15 but its CLIs; viewer: 16 but its
+    in-process viewer) in a process of its own on the same card
+    (``chip_smoke.py --worker <kind>``) at host priority ``nice`` (its
+    subprocesses inherit it), on a Background thread: its standard output
+    goes to chiprun_out/<kind>_worker.log, its errors to
+    <kind>_worker.err.  Returns (exit code, output, errors, wall s)."""
     def run():
         os.makedirs("chiprun_out", exist_ok=True)
-        out_p = os.path.join("chiprun_out", "relight_worker.log")
-        err_p = os.path.join("chiprun_out", "relight_worker.err")
+        out_p = os.path.join("chiprun_out", f"{kind}_worker.log")
+        err_p = os.path.join("chiprun_out", f"{kind}_worker.err")
         t0 = time.perf_counter()
         with open(out_p, "w") as out, open(err_p, "w") as err:
             proc = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 "relight"], stdout=out, stderr=err, text=True,
-                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+                 kind], stdout=out, stderr=err, text=True,
+                env={**os.environ, "PYTHONUNBUFFERED": "1"},
+                preexec_fn=lambda: os.nice(nice))
             CHILDREN.append(proc)
             try:
                 code = proc.wait(timeout=1000)
@@ -2467,21 +3029,33 @@ def start_relight_worker() -> Background:
     return Background(run)
 
 
-def relight_from_worker(worker: Background) -> dict:
-    """The relight worker's result: fails unless it exited 0; prints its
-    phase-15 lines here and returns the launches of its paths."""
+def from_worker(worker: Background, kind: str, start: str) -> dict:
+    """A worker's result: fails unless it exited 0; prints its lines here
+    and returns the JSON of its last line."""
     t0 = time.perf_counter()
     code, out, err, wall = worker.result()
-    check(code == 0, f"the relight worker: exit {code}: {out[-2000:]} "
+    check(code == 0, f"the {kind} worker: exit {code}: {out[-2000:]} "
           f"{err[-3000:]}")
     lines = out.splitlines()
-    start = lines.index(WORKER_START)
-    for ln in lines[start + 1:-1]:
+    for ln in lines[lines.index(start) + 1:-1]:
         print(ln)
-    print(f"relight: the worker process ran {wall:.1f} s beside phases "
+    print(f"{kind}: the worker process ran {wall:.1f} s beside phases "
           f"11-13 and the CLIs; waited {time.perf_counter() - t0:.1f} s "
           f"for it")
-    return json.loads(lines[-1])["relight_launches"]
+    return json.loads(lines[-1])
+
+
+def scenes_from_worker(worker: Background, ngp_psnr: float,
+                       card: str) -> dict:
+    """Phase 16's worker: its lines, and the bound-2 eval gated against
+    phase 13's NGP CLI of this run.  Returns its launches by path."""
+    res = from_worker(worker, "viewer", VIEWER_WORKER_START)["scenes"]
+    print(f"scenes: bound-2 CLI PSNR {res['psnr']:.2f} dB against phase "
+          f"13's NGP CLI {ngp_psnr:.2f} dB (gate >= the NGP CLI less "
+          f"{B2_SLACK} dB) ({card})")
+    check(res["psnr"] >= ngp_psnr - B2_SLACK, f"bound-2 PSNR {res['psnr']} "
+          f"dB against the NGP CLI's {ngp_psnr} dB")
+    return res["launches"]["bound2_cli_eval"]
 
 
 def tree_to(tree, device):
@@ -2531,7 +3105,9 @@ def main() -> int:
 
     only_entry = sys.argv[1:] == ["--only", "entry_points"]
     only_relight = sys.argv[1:] == ["--only", "relight"]
+    only_viewer = sys.argv[1:] == ["--only", "viewer"]
     as_worker = sys.argv[1:] == ["--worker", "relight"]
+    as_viewer_worker = sys.argv[1:] == ["--worker", "viewer"]
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2561,11 +3137,43 @@ def main() -> int:
         return 0
     if as_worker:
         # phase 15 but its CLIs, for the whole smoke, which reads this
-        # output (start_relight_worker)
+        # output (start_worker)
         print(WORKER_START)
         cdf = relight_phase(dev, card, SyntheticSphereDataset(
             n_frames=8, H=800, W=800), own_sh=False)
         print(json.dumps({"relight_launches": cdf}))
+        return 0
+    if as_viewer_worker:
+        # phase 16 but its in-process viewer, for the whole smoke, which
+        # reads this output (start_worker)
+        print(VIEWER_WORKER_START)
+        print(json.dumps({"scenes": scenes_phase(dev, card,
+                                                 CLI_PLAIN_ITERS)}))
+        return 0
+    if only_viewer:
+        # a shorter run while working on phase 16: the device, the build,
+        # the viewer on a briefly trained curved field, and the scenes
+        # with a 50-step undistilled run on an icosphere template for
+        # --gui; no result lines
+        viewer_phase(dev, card, quick_curved(dev, SyntheticSphereDataset(
+            n_frames=8, H=800, W=800)))
+        torch.cuda.empty_cache()
+        scene = os.path.join(CLI_DIR, "scene")
+        start_clis(relight=False, entry=False)
+        from nerf_texture_tpu_torch.geometry.mesh import (make_icosphere,
+                                                          save_obj)
+        ws_plain = os.path.join(CLI_DIR, "ws_plain")
+        os.makedirs(os.path.join(ws_plain, "meshes"))
+        save_obj(os.path.join(ws_plain, "meshes",
+                              "surface_coacd_remesh.obj"),
+                 make_icosphere(4, radius=0.5))
+        plain = Background(lambda: cli_run(
+            ["main_torch.py", scene, "--workspace", ws_plain, "--iters",
+             "50", "--eval_interval", "50"], "cli_curved_plain"))
+        scenes_phase(dev, card, 50)
+        check(plain.result()[0] == 0, "the 50-step undistilled run")
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 16 "
+              f"only ({card})")
         return 0
     if only_relight:
         # a shorter run while working on phase 15: the device, the build
@@ -2861,10 +3469,20 @@ def main() -> int:
     sh_import = relight_sh_import(tr, ds, card)
     lap("15 SH import")
 
-    # -- from here the CLIs of phases 13 and 15 and the rest of phase 15
-    # (a worker process) run beside phases 11-13 on the same card
+    # -- from here the CLIs of phases 13 and 15 and the rest of phases 15
+    # and 16 (worker processes) run beside phases 11-13 on the same card
     clis = start_clis()
-    worker = start_relight_worker()
+    # the relight worker at a lower host priority than phase 13's CLI
+    # chain, which holds the smoke's wall (the main process waits for
+    # it): the worker has slack beside it
+    worker = start_worker("relight", nice=5)
+    viewer_worker = start_worker("viewer", nice=0)
+
+    # -- 16. the viewer on phase 10's trained field, in this process ---------
+    # (before phase 11 imports a texture into it; beside the CLIs, as the
+    # main process has slack until phase 13 waits for them)
+    viewer = viewer_phase(dev, card, tr)
+    lap("16 viewer")
 
     # -- 11. the texture pipeline on the trained field -----------------------
     texture = texture_phase(dev, card, ds, tr)
@@ -2877,7 +3495,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 13. the training entry points on a scene directory ------------------
-    entry = entry_points_phase(dev, card, clis["entry"])
+    entry, ngp_psnr = entry_points_phase(dev, card, clis["entry"])
     lap("13")
 
     # -- 15. relighting and the vertex encoder --------------------------------
@@ -2885,6 +3503,10 @@ def main() -> int:
                    **relight_from_worker(worker)}
     relight_topk = relight_clis(card, clis["relight"])
     lap("15")
+
+    # -- 16. the JPEG scene, bound 2 and --gui (the worker) -------------------
+    b2_topk, b2_cdf = scenes_from_worker(viewer_worker, ngp_psnr, card)
+    lap("16")
 
     print("smoke: phase walls: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in phase_walls.items())
@@ -2897,7 +3519,7 @@ def main() -> int:
                  "curved_baked": trained["baked"],
                  "texture_field": texture["texture_field"],
                  "texture_patch": texture["texture_patch"], **surfaces,
-                 **relight_cdf}
+                 **relight_cdf, **viewer, "bound2_cli_eval": b2_cdf}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape
@@ -2936,7 +3558,7 @@ def main() -> int:
                     "nerf_texture_tpu/ops/proxy_select.py:49",
                     {"ngp_trained_render_topk": launches["topk"],
                      "texture_two_round": texture["texture_two_round"],
-                     **entry, **relight_topk},
+                     **entry, **relight_topk, "bound2_cli_eval": b2_topk},
                     topk_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

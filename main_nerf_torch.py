@@ -5,9 +5,16 @@ Usage:
   python3 main_nerf_torch.py data/star_flower --workspace logs/star_flower \
       --save_mesh
   python3 main_nerf_torch.py synthetic_sphere --iters 2000
+  python3 main_nerf_torch.py <scene> --bound 2 --dt_gamma 0.0078125
+  python3 main_nerf_torch.py <scene> --gui --port 7860
   python3 main_nerf_torch.py <scene> --device cpu   # tiny scenes only
 
-Trains on the card by default and raises where there is none.  Writes
+Trains on the card by default and raises where there is none.  With
+``--gui`` it serves the viewer on ``--port`` instead (training, with the
+MJPEG stream and JSON control of ``nerf_texture_tpu_torch.viewer``).
+``--bound`` > 1 trains a scene larger than the unit cube (1 +
+ceil(log2(bound)) cascades), ``--dt_gamma`` > 0 grows the march's step
+with distance.  Writes
 ``W/checkpoints/ngp`` after every eval (and loads it at start with
 ``--ckpt latest``), ``W/log_ngp.jsonl``, and with ``--save_mesh``
 ``W/meshes/ngp_mesh.obj``.  Prints ``[done/iters] loss=... PSNR=...``
@@ -55,10 +62,6 @@ def _sync(device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.gui:
-        raise NotImplementedError(
-            "main_nerf_torch.py --gui: the viewer is not ported; ROADMAP "
-            "Queue 1, item 11.7")
     import torch
 
     from nerf_texture_tpu_torch.data.provider import NeRFDataset
@@ -99,6 +102,14 @@ def main(argv=None):
         _sync(device)
         print(f"checkpoint: loaded step {trainer.state.step} in "
               f"{time.perf_counter() - t0:.3f} s")
+
+    if args.gui:
+        from nerf_texture_tpu_torch.viewer import ViewerApp, serve
+
+        app = ViewerApp(trainer, W=dataset.W, H=dataset.H)
+        app.training = True
+        serve(app, port=args.port)
+        return
 
     done = trainer.state.step
     while done < args.iters:

@@ -20,8 +20,13 @@ Usage:
   python3 main_torch.py <scene> --light_model SG
   python3 main_torch.py <scene> --encoder vertex --iters_per_level 1000
   python3 main_torch.py <scene> --device cpu   # tiny scenes only
+  python3 main_torch.py <scene> --workspace W --gui --port 7860
 
-Trains on the card by default and raises where there is none.  Writes
+Trains on the card by default and raises where there is none.  With
+``--gui`` it loads the checkpoint, then serves the viewer on ``--port``
+(training, with the MJPEG stream and JSON control of
+``nerf_texture_tpu_torch.viewer``) instead of the training loop.
+Writes
 ``W/meshes/surface_coacd_remesh.obj``, ``W/checkpoints/<field_name>``
 after every eval (loaded at start with ``--ckpt latest``) and
 ``W/log_curved.jsonl``.  Prints ``template: ... h_threshold=...``,
@@ -135,10 +140,6 @@ def _sync(device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.gui:
-        raise NotImplementedError(
-            "main_torch.py --gui: the viewer is not ported; ROADMAP Queue 1, "
-            "item 11.7")
     import torch
 
     from nerf_texture_tpu_torch.config import get_preset
@@ -240,6 +241,14 @@ def main(argv=None):
         _sync(device)
         print(f"checkpoint: loaded step {trainer.state.step} in "
               f"{time.perf_counter() - t0:.3f} s")
+
+    if args.gui:
+        from nerf_texture_tpu_torch.viewer import ViewerApp, serve
+
+        app = ViewerApp(trainer, W=dataset.W, H=dataset.H)
+        app.training = True
+        serve(app, port=args.port)
+        return
 
     done = trainer.state.step
     while done < cfg.iters:

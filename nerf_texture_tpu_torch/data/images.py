@@ -8,8 +8,9 @@ bit for bit.  What imageio makes of a PNG is kept: 16-bit RGB(A) keeps
 the high byte of each sample, 16-bit gray is scaled to uint8 in f32 as
 the JAX loader does, 16-bit gray-alpha becomes RGBA, 8-bit gray-alpha
 stays two channels, and gray becomes three channels.  Palette, interlaced
-and sub-byte PNGs raise; a JPEG is read through PIL where PIL can be
-imported, else raises naming the file.
+and sub-byte PNGs raise.  A JPEG is read by ``data.jpeg`` (baseline
+sequential files, bit for bit as PIL decodes them); any other format
+raises naming the file.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import read_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels of each PNG colour type (palette, 3, is not read)
@@ -142,22 +145,15 @@ def write_png(path: str, img: np.ndarray):
 def load_image(path: str) -> np.ndarray:
     """A scene image as the JAX loader has it: uint8 [H, W, C], C = 3 or 4
     (2 for 8-bit gray-alpha); other integer types scaled to uint8 in f32,
-    gray made three channels.  PNG is read here; JPEG through PIL, which
-    must then be importable."""
+    gray made three channels.  PNG and baseline JPEG are read."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head == PNG_SIGNATURE:
         img = read_png(path)
+    elif head[:2] == b"\xff\xd8":
+        img = read_jpeg(path)
     else:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(
-                f"{path}: not a PNG, and PIL (the JPEG decoder) is not "
-                f"installed; ROADMAP Queue 1, item 11.7 (a JPEG reader)") \
-                from e
-        with Image.open(path) as im:
-            img = np.asarray(im)
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
     if img.dtype != np.uint8:
         img = (np.clip(img.astype(np.float32) / np.iinfo(img.dtype).max,
                        0, 1) * 255).astype(np.uint8)

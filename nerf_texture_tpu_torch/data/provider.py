@@ -3,9 +3,9 @@
 
 Host numpy, as in the JAX package: the images load once as uint8, the
 poses go to the ngp convention and are normalised, and the trainers copy
-the arrays to the device.  Images are read by ``data.images`` (PNG
-without an image library; JPEG through PIL) and resized with PIL's
-Lanczos arithmetic, so the arrays equal the JAX loader's bit for bit.
+the arrays to the device.  Images are read by ``data.images`` (PNG and
+baseline JPEG without an image library) and resized with PIL's Lanczos
+arithmetic, so the arrays equal the JAX loader's bit for bit.
 """
 
 from __future__ import annotations

@@ -1,12 +1,16 @@
 """Occupancy-grid ray marching (port of ``nerf_texture_tpu/ops/marching.py``).
 
-The march advances t by a fixed step whether a cell is occupied or not;
-occupancy only decides which samples are emitted.  So it is three
-vectorised phases: the t-sequence per ray [N, S], one occupancy gather
-[N, S], and a stable per-row compaction of the kept samples into K slots.
+The march advances t whether a cell is occupied or not; occupancy only
+decides which samples are emitted.  So it is three vectorised phases: the
+t-sequence per ray [N, S], one occupancy gather [N, S], and a stable
+per-row compaction of the kept samples into K slots.
 
-Only the constant step (``dt_gamma == 0``, the bench setting) is ported;
-the per-step scan of ``dt_gamma > 0`` raises.
+The step is constant (``dt_gamma == 0``, closed form) or grows with t,
+t += clamp(t * dt_gamma, dt_min, dt_max): a sequential loop of S steps
+over all rays at once, in the JAX scan's order, so the t values are the
+same f32 numbers.  A grid of several cascades (``bound`` > 1) looks each
+sample up in the level that holds both its position and its step
+(``frexp`` of the largest coordinate and of the step in cells).
 """
 
 from __future__ import annotations
@@ -48,15 +52,23 @@ class MarchResult(NamedTuple):
     counts: torch.Tensor  # [N] int64 valid samples per ray
 
 
-def _t_sequence(t0, *, dt_gamma: float, dt_min: float, num_steps: int):
-    """(ts, dts) [N, S] of the advance t += dt_min (dt_gamma == 0)."""
-    if dt_gamma != 0.0:
-        raise NotImplementedError(
-            "march_rays: dt_gamma > 0 (the per-step scan) is not ported; "
-            "ROADMAP Queue 1, item 4")
-    steps = torch.arange(num_steps, dtype=t0.dtype, device=t0.device)
-    ts = t0[:, None] + steps[None, :] * dt_min
-    return ts, torch.full_like(ts, dt_min)
+def _t_sequence(t0, *, dt_gamma: float, dt_min: float, dt_max: float,
+                num_steps: int):
+    """(ts, dts) [N, S] of the advance t += clamp(t * dt_gamma, dt_min,
+    dt_max): closed form for dt_gamma == 0, else one step at a time over
+    all rays (the JAX function's scan)."""
+    if dt_gamma == 0.0:
+        steps = torch.arange(num_steps, dtype=t0.dtype, device=t0.device)
+        ts = t0[:, None] + steps[None, :] * dt_min
+        return ts, torch.full_like(ts, dt_min)
+    ts, dts = [], []
+    t = t0
+    for _ in range(num_steps):          # three launches a step
+        dt = torch.mul(t, dt_gamma).clamp_(dt_min, dt_max)
+        ts.append(t)
+        dts.append(dt)
+        t = t + dt
+    return torch.stack(ts, 1), torch.stack(dts, 1)
 
 
 def march_rays(rays_o, rays_d, occ, nears, fars, *, bound: float,
@@ -70,29 +82,40 @@ def march_rays(rays_o, rays_d, occ, nears, fars, *, bound: float,
     ``perturb`` shifts each ray's start by dt_min * u with the jitter u
     [N] in [0, 1), which the caller draws (the JAX function draws it from
     its key)."""
-    if cascades != 1:
-        raise NotImplementedError(
-            "march_rays: cascades > 1 (bound > 1) is not ported; ROADMAP "
-            "Queue 1, item 4")
     N = rays_o.shape[0]
     H = grid_size
     dt_min = 2.0 * SQRT3 / (dt_steps or max_steps)
+    dt_max = 2.0 * SQRT3 * (2 ** (cascades - 1)) / H
     t0 = nears
     if perturb:
         if u is None:
             raise ValueError("march_rays: perturb=True needs the jitter u")
         t0 = t0 + dt_min * u
     ts, dts = _t_sequence(t0, dt_gamma=dt_gamma, dt_min=dt_min,
-                          num_steps=max_steps)                 # [N, S]
+                          dt_max=dt_max, num_steps=max_steps)  # [N, S]
+    p = [torch.clamp(rays_o[:, ax:ax + 1] + ts * rays_d[:, ax:ax + 1],
+                     -bound, bound) for ax in range(3)]
 
-    def cell(ax):
+    def cell(x):
         # truncation toward zero, as the JAX .astype(int32)
-        p = torch.clamp(rays_o[:, ax:ax + 1] + ts * rays_d[:, ax:ax + 1],
-                        -bound, bound)
-        c = ((p + bound) * (H / (2.0 * bound))).to(torch.int32)
-        return torch.clamp(c, 0, H - 1).to(torch.int64)
+        return torch.clamp(x.to(torch.int32), 0, H - 1).to(torch.int64)
 
-    flat = (cell(0) * H + cell(1)) * H + cell(2)
+    if cascades == 1:
+        inv2b = H / (2.0 * bound)
+        c = [cell((x + bound) * inv2b) for x in p]
+        flat = (c[0] * H + c[1]) * H + c[2]
+    else:
+        mx = torch.maximum(torch.abs(p[0]), torch.maximum(torch.abs(p[1]),
+                                                          torch.abs(p[2])))
+        e_pos = torch.frexp(mx).exponent
+        e_dt = torch.frexp(dts * (H * 0.5)).exponent
+        level = torch.clamp(torch.maximum(e_pos, e_dt), 0, cascades - 1)
+        mip_bound = torch.clamp(torch.exp2(level.to(ts.dtype)), max=bound)
+        half_h = 0.5 * H
+        inv_mb = half_h / mip_bound
+        c = [cell(x * inv_mb + half_h) for x in p]
+        flat = level.to(torch.int64) * (H * H * H) + (c[0] * H + c[1]) * H \
+            + c[2]
     occupied = occ[flat.reshape(-1)].reshape(N, max_steps) > 0
     keep = occupied & (ts < fars[:, None])                       # [N, S]
 
@@ -103,8 +126,14 @@ def march_rays(rays_o, rays_d, occ, nears, fars, *, bound: float,
                         stable=True)[:, :k_eff]
     valid = (torch.arange(max_samples, device=rays_o.device)[None, :]
              < counts[:, None])
-    ts_c = t0[:, None] + src.to(ts.dtype) * dt_min
-    dts_c = torch.full_like(ts_c, dt_min)
+    if dt_gamma == 0.0:
+        # a constant step: ts is affine in the step index, so the
+        # compacted buffers come straight from src, as in JAX
+        ts_c = t0[:, None] + src.to(ts.dtype) * dt_min
+        dts_c = torch.full_like(ts_c, dt_min)
+    else:
+        ts_c = torch.gather(ts, 1, src)
+        dts_c = torch.gather(dts, 1, src)
     if k_eff < max_samples:
         ts_c = torch.nn.functional.pad(ts_c, (0, max_samples - k_eff))
         dts_c = torch.nn.functional.pad(dts_c, (0, max_samples - k_eff))

@@ -30,8 +30,15 @@ each ray's prepass span, the compacted sample pool, and with the sigma
 and colour functions the two-phase render over ``survivor_pool``.  The
 curved model's anchor frames ride along on both paths (``anchor_fn``).
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): deferred shading, and grids of more than one cascade.
+A grid of more than one cascade (a scene of ``bound`` > 1) has no
+dilated prepass grid and no corner table: its frames test every pixel's
+ray against the occupied AABB and render the hits in chunks through
+``render_rays`` (the JAX module's AABB-hit branch).  ``crop_aabb``, the
+viewer's inference crop, intersects the occupied AABB on every path; an
+empty crop renders pure background.
+
+Not ported (raises ``NotImplementedError`` naming its ROADMAP item):
+deferred shading.
 """
 
 from __future__ import annotations
@@ -95,8 +102,7 @@ class RenderConfig:
     @staticmethod
     def for_bound(bound: float, **kw) -> "RenderConfig":
         """The config of a scene of this bound: 1 + ceil(log2(bound))
-        cascades (bound > 1 needs cascades, which the march does not port
-        yet), the other fields as given or their defaults."""
+        cascades, the other fields as given or their defaults."""
         cascades = 1 + math.ceil(math.log2(max(bound, 1.0)))
         return RenderConfig(bound=bound, cascades=cascades, **kw)
 
@@ -859,10 +865,57 @@ def _bind(params, field_static, field_apply, anchor_apply, sigma_apply,
             (lambda x, d, a: color_apply(params, x, d, a, st)))
 
 
+def _crop(prepass: PrepassState, crop_aabb, cfg: RenderConfig):
+    """(aabb np, aabb tensor, tau samples) of the prepass's occupied AABB
+    intersected with the user's ``crop_aabb`` [6]; (None, None, ...)
+    when the crop leaves nothing."""
+    if crop_aabb is None or prepass.aabb_np is None:
+        return prepass.aabb_np, prepass.aabb, prepass.tau_samples
+    crop = np.asarray(crop_aabb, np.float32)
+    a = prepass.aabb_np
+    aabb_np = np.concatenate([np.maximum(a[:3], crop[:3]),
+                              np.minimum(a[3:], crop[3:])])
+    if (aabb_np[3:] <= aabb_np[:3]).any():
+        return None, None, prepass.tau_samples
+    return (aabb_np, torch.as_tensor(aabb_np, device=prepass.device),
+            _tau_samples(cfg, aabb_np))
+
+
+def _render_aabb_hits(fns, frame, pose, intr, aabb, prepass: PrepassState,
+                      cfg: RenderConfig, *, H: int, W: int, chunk: int):
+    """The frame of a grid without a dilated prepass grid (more than one
+    cascade): every pixel's ray against the occupied AABB, one host sync
+    for the hit count, then the hits in pixel order in chunks through
+    ``render_rays`` (the pool path; its slab test clamps each ray to the
+    AABB).  Returns (frame, live rays, chunks)."""
+    field_fn, anchor_fn, sigma_fn, color_fn = fns
+    rays = get_rays(pose, intr, H, W)
+    nears, fars = near_far_from_aabb(rays["rays_o"], rays["rays_d"], aabb,
+                                     0.0)
+    live = torch.nonzero(fars > nears)[:, 0]
+    count = int(live.numel())
+    n_chunks = -(-count // chunk)
+    for c in range(n_chunks):
+        idx_c = live[c * chunk:(c + 1) * chunk]
+        out = render_rays(
+            field_fn, prepass.occ, rays["rays_o"][idx_c],
+            rays["rays_d"][idx_c], cfg, max_samples=cfg.max_samples_infer,
+            bg_color=frame[idx_c, :3], aabb=aabb, anchor_fn=anchor_fn,
+            march_steps=cfg.march_steps_infer or None, sigma_fn=sigma_fn,
+            color_fn=color_fn,
+            pool_mean=(cfg.pool_mean_samples_infer
+                       if cfg.pool_mean_samples else 0),
+            pool_rays=chunk)
+        frame[idx_c] = torch.cat([out["image"], out["depth"][:, None],
+                                  out["weights_sum"][:, None]], dim=-1)
+    return frame, count, n_chunks
+
+
 def render_image(field_apply, field_static, params, prepass: PrepassState,
                  pose, intrinsics, H: int, W: int, cfg: RenderConfig, *,
                  bg_color=1.0, anchor_apply=None, sigma_apply=None,
-                 color_apply=None, plain_select: bool = False):
+                 color_apply=None, crop_aabb=None,
+                 plain_select: bool = False):
     """Render a full frame: block prepass, live compaction, one host sync
     for the live count, then a plain loop over chunks of live rays.
 
@@ -873,7 +926,10 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     aux, field_static[, frames]) -> rgb, the two phases of the pool path.
     ``prepass`` is the grid's ``PrepassState``: with a corner table
     (``infer_mode='proxy'``) the frame takes the proxy path, without one
-    the pool path (no tau carve in the block prepass).
+    the pool path (no tau carve in the block prepass), and without a
+    dilated grid (more than one cascade) the AABB-hit path.
+    ``crop_aabb`` [6] (xmin, ymin, zmin, xmax, ymax, zmax), the inference
+    crop, is intersected with the occupied AABB.
     ``plain_select``: see ``render_rays_proxy``.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
@@ -889,26 +945,28 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
                 "weights_sum": frame[:, 4].reshape(H, W),
                 "live": live, "chunks": chunks}
 
-    if prepass.aabb is None:
+    aabb_np, aabb, tau_samples = _crop(prepass, crop_aabb, cfg)
+    if aabb_np is None:
         return out(frame, 0, 0)         # nothing occupied: pure background
-    if prepass.occ_dil is None:
-        raise NotImplementedError(
-            "render_image: grids of more than one cascade (the AABB-hit "
-            "inference path) are not ported; ROADMAP Queue 1, item 4")
     pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
     intr_np = np.asarray(intrinsics, np.float32)
     intr = torch.as_tensor(intr_np, device=device)
+    fns = _bind(params, field_static, field_apply, anchor_apply,
+                sigma_apply, color_apply)
+    if prepass.occ_dil is None:
+        return out(*_render_aabb_hits(fns, frame, pose, intr, aabb, prepass,
+                                      cfg, H=H, W=W, chunk=chunk))
     B = max(1, cfg.prepass_block)
     Hb, Wb = -(-H // B), -(-W // B)
     nb = Hb * Wb
     rays_b = get_rays(pose, torch.as_tensor(intr_np / B, device=device),
                       Hb, Wb)
     perm, count_d, t0_d, t1_d, n_hit_d = _prepass_compact(
-        rays_b["rays_o"], rays_b["rays_d"], prepass.occ_dil, prepass.aabb,
+        rays_b["rays_o"], rays_b["rays_d"], prepass.occ_dil, aabb,
         cfg.bound, cfg.min_near, grid_size=cfg.grid_size,
         margin_steps=(cfg.prepass_margin_steps if B > 1 else 0.0),
         H=H, W=W, Hb=Hb, Wb=Wb, B=B, nb=nb, dens8=prepass.dens8,
-        tau_cull=cfg.prepass_tau_cull, tau_samples=prepass.tau_samples)
+        tau_cull=cfg.prepass_tau_cull, tau_samples=tau_samples)
     # the frame's one host sync: the live count (and the hit-block count
     # for the tau-sweep cap warning) in one transfer
     count, n_hit = torch.stack([count_d, n_hit_d]).tolist()
@@ -920,8 +978,6 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
             "4096; the blocks past it keep their full span (ROADMAP "
             "Queue 3)", stacklevel=2)
     n_chunks = -(-count // chunk)
-    fns = _bind(params, field_static, field_apply, anchor_apply,
-                sigma_apply, color_apply)
     for c in range(n_chunks):
         frame = _chunk_body(fns, pose[:3], intr, frame, perm, count,
                             c * chunk, t0_d, t1_d, prepass, cfg, B=B, W=W,

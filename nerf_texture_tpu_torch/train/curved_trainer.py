@@ -755,6 +755,13 @@ class CurvedTrainer(CheckpointMethods):
         # every render path
         self.light_import = None
         self.euler = None
+        # the inference crop [6] of every render path (the viewer's
+        # set_aabb); None renders the whole grid
+        self.crop_aabb = None
+        # the host template mesh (the CLI sets it) and the faces the
+        # viewer's pick_region chose, which save_field's patches keep to
+        self.template_mesh = None
+        self.picked_faces = None
         # per-cell anchor table, built once per template mesh; collapsed
         # columns give one chart per surface patch through the shell
         self.anchor_cache = True
@@ -1093,7 +1100,8 @@ class CurvedTrainer(CheckpointMethods):
         'none', RGB, the hash encoder and the collapsed anchor table, and
         without them warns and renders the live field.
         ``plain_select`` runs the plain selection in place of the kernel.
-        Every path shades with ``light_import``, ``euler`` and
+        Every path renders within ``crop_aabb`` (None: the whole grid)
+        and shades with ``light_import``, ``euler`` and
         ``light_visual_mode``; the live and pool paths in
         ``visual_mode`` (the baked path is RGB only).
 
@@ -1139,7 +1147,7 @@ class CurvedTrainer(CheckpointMethods):
                     self._prepass_for(rcfg), pose, self.dataset.intrinsics,
                     H or self.H, W or self.W, rcfg, bg_color=bg_color,
                     anchor_apply=curved_anchor_apply_baked,
-                    plain_select=plain_select)
+                    crop_aabb=self.crop_aabb, plain_select=plain_select)
         return render_image(
             curved_field_apply, static, bundle, self._prepass_for(rcfg),
             pose, self.dataset.intrinsics, H or self.H, W or self.W, rcfg,
@@ -1149,7 +1157,7 @@ class CurvedTrainer(CheckpointMethods):
             color_apply=(curved_color_apply
                          if use_frames and self.visual_mode != "Grad"
                          else None),
-            plain_select=plain_select)
+            crop_aabb=self.crop_aabb, plain_select=plain_select)
 
     def eval_psnr(self, frame_indices=None, *, use_ema: bool = True,
                   parity: bool = False) -> float:

@@ -45,10 +45,14 @@ def save_field(trainer, path: str, *, scan_pcl=None, mesh: Mesh = None,
                stats: dict | None = None) -> dict:
     """Sample patches from the trainer's field (its params, not the EMA)
     on the host template ``mesh`` and write the field npz (entries that
-    are None are left out).  ``face_subset`` restricts the patch centres
-    to those faces; ``stats`` receives the candidate centres and rays
-    cast (``sample_patches``).  Returns the export dict."""
+    are None are left out).  ``face_subset`` (or, when unset, the
+    trainer's ``picked_faces``, the viewer's ``pick_region``) restricts
+    the patch centres to those faces; ``stats`` receives the candidate
+    centres and rays cast (``sample_patches``).  Returns the export
+    dict."""
     scfg = scfg or PatchSampleConfig()
+    if face_subset is None:
+        face_subset = getattr(trainer, "picked_faces", None)
     out = sample_patches(trainer.state.params["field"], trainer.field_state,
                          trainer.ccfg.field, mesh, scfg, scan_pcl=scan_pcl,
                          face_subset=face_subset, stats=stats)

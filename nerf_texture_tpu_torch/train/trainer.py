@@ -259,13 +259,14 @@ def ngp_infer_params(params, mcfg: ngp.NGPConfig):
 def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
                  H: int, W: int, mcfg: ngp.NGPConfig, rcfg: RenderConfig,
                  *, bg_color=1.0, prepass: PrepassState | None = None,
-                 plain_select: bool = False):
+                 crop_aabb=None, plain_select: bool = False):
     """Render an H x W view of an NGP (``Trainer.render_frame``).
 
     params: NGP params (``ngp.init``, trained or converted), ideally
     passed through ``ngp_infer_params`` once; occ: the occupancy grid,
     from which the ``PrepassState`` is built unless ``prepass`` (built
-    once per grid) is given.  ``plain_select``: see ``render_image``.
+    once per grid) is given.  ``crop_aabb`` and ``plain_select``: see
+    ``render_image``.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live, chunks)."""
@@ -282,7 +283,7 @@ def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
     return render_image(ngp_field_apply, mcfg, ngp_infer_params(params, mcfg),
                         prepass, pose, intrinsics, H, W, rcfg,
                         bg_color=bg_color, sigma_apply=ngp_sigma_apply,
-                        color_apply=ngp_color_apply,
+                        color_apply=ngp_color_apply, crop_aabb=crop_aabb,
                         plain_select=plain_select)
 
 
@@ -383,6 +384,9 @@ class Trainer(CheckpointMethods):
         self._marked = False
         self._prepass: PrepassState | None = None
         self._prepass_occ: OccupancyGrid | None = None
+        # the inference crop [6] of render_frame (the viewer's set_aabb);
+        # None renders the whole grid
+        self.crop_aabb = None
 
     def mark_untrained(self):
         self.state.occ = occ_mod.mark_untrained(
@@ -431,8 +435,9 @@ class Trainer(CheckpointMethods):
 
     def render_frame(self, pose, *, use_ema: bool = True, bg_color=1.0,
                      H=None, W=None):
-        """Render a view of the current field; the ``PrepassState`` is
-        built once per occupancy refresh."""
+        """Render a view of the current field within ``crop_aabb`` (the
+        viewer's inference crop; None: the whole grid); the
+        ``PrepassState`` is built once per occupancy refresh."""
         if self._prepass_occ is not self.state.occ:
             occ = self.state.occ
             self._prepass = PrepassState.build(occ.occ, self.rcfg,
@@ -441,7 +446,8 @@ class Trainer(CheckpointMethods):
         params = self.state.ema_params if use_ema else self.state.params
         return render_frame(params, None, pose, self.dataset.intrinsics,
                             H or self.H, W or self.W, self.mcfg, self.rcfg,
-                            bg_color=bg_color, prepass=self._prepass)
+                            bg_color=bg_color, prepass=self._prepass,
+                            crop_aabb=self.crop_aabb)
 
     def eval_psnr(self, frame_indices=None, *, use_ema: bool = True) -> float:
         """Mean PSNR of the given training frames (white background)."""

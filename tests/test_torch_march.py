@@ -87,13 +87,80 @@ def test_march_rays_matches(perturb):
 
 
 def test_march_needs_jitter_and_constant_step():
+    """perturb without the jitter raises; dt_gamma > 0 (the growing step)
+    no longer raises and equals the JAX march."""
     occ, o, d, nears, fars = _scene(1, n=4)
     with pytest.raises(ValueError, match="jitter"):
         tm.march_rays(_t(o), _t(d), _t(occ), _t(nears), _t(fars),
                       perturb=True, **MARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.march_rays(_t(o), _t(d), _t(occ), _t(nears), _t(fars),
-                      **dict(MARCH, dt_gamma=1 / 128))
+    cfg = dict(MARCH, dt_gamma=1 / 128)
+    got = tm.march_rays(_t(o), _t(d), _t(occ), _t(nears), _t(fars), **cfg)
+    want = jm.march_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(occ),
+                         jnp.asarray(nears), jnp.asarray(fars), **cfg)
+    np.testing.assert_array_equal(_np(got.mask), _np(want.mask))
+    np.testing.assert_allclose(_np(got.ts), _np(want.ts), rtol=0, atol=1e-6)
+
+
+# the JAX package's gamma-march test (tests/test_marching.py): a grid of
+# H 8 in 2 cascades over bound 2
+GAMMA = dict(bound=2.0, cascades=2, grid_size=8, max_steps=96,
+             max_samples=48)
+
+
+def _gamma_scene(seed, n=96):
+    """Rays from outside the [-2, 2] cube, a ~30% occupied 2-cascade
+    grid; some rays pass close to the centre (level 0), some far out."""
+    rng = np.random.default_rng(seed)
+    H, C = GAMMA["grid_size"], GAMMA["cascades"]
+    occ = (rng.uniform(size=C * H ** 3) < 0.3).astype(np.uint8)
+    o = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)),
+                        np.full((n, 1), -3.0)], -1).astype(np.float32)
+    d = rng.normal(size=(n, 3)) * [0.2, 0.2, 0] + [0, 0, 1]
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    b = GAMMA["bound"]
+    aabb = np.array([-b] * 3 + [b] * 3, np.float32)
+    nears, fars = jm.near_far_from_aabb(jnp.asarray(o), jnp.asarray(d),
+                                        jnp.asarray(aabb), 0.2)
+    return occ, o, d, np.asarray(nears), np.asarray(fars)
+
+
+@pytest.mark.parametrize("dt_gamma", [0.0, 1 / 64, 1 / 128])
+@pytest.mark.parametrize("perturb", [False, True])
+def test_cascaded_march_matches(dt_gamma, perturb):
+    """The 2-cascade march (frexp level of position and step, mip bound)
+    with and without the growing step: counts and masks exact, t and dt
+    within 1e-6."""
+    occ, o, d, nears, fars = _gamma_scene(7)
+    key = jax.random.PRNGKey(3)
+    cfg = dict(GAMMA, dt_gamma=dt_gamma, perturb=perturb)
+    want = jm.march_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(occ),
+                         jnp.asarray(nears), jnp.asarray(fars), key=key,
+                         **cfg)
+    u = np.asarray(jax.random.uniform(key, (o.shape[0],), jnp.float32))
+    got = tm.march_rays(_t(o), _t(d), _t(occ), _t(nears), _t(fars),
+                        u=_t(u) if perturb else None, **cfg)
+    counts = _np(want.counts)
+    assert counts.min() < counts.max() and counts.max() > 0
+    np.testing.assert_array_equal(_np(got.counts), counts)
+    np.testing.assert_array_equal(_np(got.mask), _np(want.mask))
+    np.testing.assert_allclose(_np(got.ts), _np(want.ts), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(_np(got.dts), _np(want.dts), rtol=0,
+                               atol=1e-6)
+
+
+def test_t_sequence_matches_jax_scan():
+    """The growing step at dt_gamma 1/128 over 384 steps (main_nerf's
+    --dt_gamma 0.0078125 at max_steps 384, 2 cascades of 128): the loop
+    gives the JAX scan's t and dt, f32 for f32."""
+    rng = np.random.default_rng(2)
+    t0 = rng.uniform(0.2, 3.0, 64).astype(np.float32)
+    kw = dict(dt_gamma=1 / 128, dt_min=2 * tm.SQRT3 / 384,
+              dt_max=2 * tm.SQRT3 * 2 / 128, num_steps=384)
+    ts_j, dts_j = jm._t_sequence(jnp.asarray(t0), None, **kw)
+    ts_t, dts_t = tm._t_sequence(_t(t0), **kw)
+    np.testing.assert_array_equal(_np(ts_t), _np(ts_j))
+    np.testing.assert_array_equal(_np(dts_t), _np(dts_j))
+    assert float(_np(dts_t).max()) == np.float32(kw["dt_max"])
 
 
 def _samples(seed, N=48, K=24, C=3):

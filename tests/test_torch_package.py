@@ -145,6 +145,34 @@ def test_training_clis_import_no_jax_and_need_the_card(tmp_path):
         assert not (ws / "checkpoints").exists()
 
 
+_IMPORT_VIEWER = """
+import sys
+import numpy as np
+import chip_smoke, main_nerf_torch, main_torch
+from nerf_texture_tpu_torch.data import images, jpeg, provider
+from nerf_texture_tpu_torch.viewer import ViewerApp, serve
+img = np.arange(16 * 24 * 3, dtype=np.uint8).reshape(16, 24, 3)
+assert jpeg.decode(jpeg.encode(img, quality=90)).shape == (16, 24, 3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "nerf_texture_tpu", "PIL",
+                                    "imageio", "cv2"))
+assert not bad, bad
+print(main_nerf_torch.parse_args(["s", "--gui"]).port)
+"""
+
+
+def test_viewer_codec_and_smoke_import_no_jax_or_image_library():
+    """The viewer, the JPEG codec, the scene loader, both CLIs and the
+    smoke script import neither JAX nor an image library (PIL, imageio,
+    OpenCV), and the codec round-trips without one."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _IMPORT_VIEWER], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "7860", res.stdout
+
+
 @pytest.mark.parametrize("ours,theirs", [
     (RenderConfig, JaxRenderConfig), (NGPConfig, JaxNGPConfig),
     (PackedGridSpec, JaxPackedGridSpec), (TrainConfig, JaxTrainConfig),

@@ -250,14 +250,43 @@ def test_png_kinds_that_raise(tmp_path):
 
 
 def test_jpeg_needs_pil(tmp_path, monkeypatch):
+    """A JPEG loads without PIL (the port's own decoder), equal to the
+    JAX loader's imageio read; a progressive one raises naming the file
+    and the ROADMAP item."""
     arr = np.random.default_rng(0).integers(0, 256, (16, 20, 3), np.uint8)
     path = str(tmp_path / "x.jpg")
     Image.fromarray(arr).save(path, quality=90)
-    np.testing.assert_array_equal(images.load_image(path),
-                                  jprov._load_image(path))
+    prog = str(tmp_path / "p.jpg")
+    Image.fromarray(arr).save(prog, quality=90, progressive=True)
+    want = jprov._load_image(path)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="x.jpg.*11.7"):
-        images.load_image(path)
+    np.testing.assert_array_equal(images.load_image(path), want)
+    with pytest.raises(ValueError, match="p.jpg.*progressive.*11.7"):
+        images.load_image(prog)
+
+
+@pytest.mark.parametrize("downscale", [1, 2])
+def test_jpeg_scene_matches_jax(tmp_path, downscale):
+    """A colmap scene of JPEG frames (written by PIL at quality 90, 4:2:0,
+    an odd size) loads in the port as in the JAX loader, bit for bit."""
+    path = str(tmp_path)
+    JaxSphere(n_frames=4, H=35, W=43, seed=5).write_to_disk(path)
+    with open(os.path.join(path, "transforms.json")) as f:
+        meta = json.load(f)
+    for fr in meta["frames"]:
+        png = os.path.join(path, fr["file_path"])
+        rgba = np.asarray(Image.open(png)).astype(np.float32) / 255.0
+        rgb = rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+        fr["file_path"] = fr["file_path"][:-4] + ".jpg"
+        Image.fromarray((rgb * 255).astype(np.uint8)).save(
+            os.path.join(path, fr["file_path"]), quality=90)
+        os.remove(png)
+    with open(os.path.join(path, "transforms.json"), "w") as f:
+        json.dump(meta, f)
+    ours = provider.NeRFDataset(path, downscale=downscale)
+    theirs = jprov.NeRFDataset(path, downscale=downscale)
+    assert ours.images.shape[-1] == 3
+    _same(ours, theirs)
 
 
 def test_write_png_round_trips(tmp_path):

@@ -10,8 +10,9 @@ Tolerances, each with its reason:
   and with two rounds (``proxy_samples=32``, round 2 by top-k): the
   survivor t's agree within 1e-5 (test_torch_proxy_select.py) and the
   field is smooth;
-- the whole slice (image), with either selection and with two rounds:
-  PSNR >= 45 dB, max abs
+- the whole slice (image), with either selection and with two rounds,
+  within the viewer's crop, and at bound 2 (two cascades, the AABB-hit
+  path, with and without the growing step): PSNR >= 45 dB, max abs
   error <= 5e-2, live pixels differing <= 0.5% -- both sides round MLP
   activations and table products to bf16, a last-bit difference can
   round to the neighbouring bf16 value, and a prepass hit test on a cell
@@ -40,6 +41,7 @@ from nerf_texture_tpu_torch.data.rays import get_rays
 from nerf_texture_tpu_torch.data.synthetic import (shell_occupancy,
                                                    sphere_intrinsics)
 from nerf_texture_tpu_torch.models import ngp as tngp
+from nerf_texture_tpu_torch.ops.occupancy import OccupancyGrid
 from nerf_texture_tpu_torch.ops.marching import near_far_from_aabb
 from nerf_texture_tpu_torch.render import renderer as tr
 from nerf_texture_tpu_torch.train.trainer import render_frame
@@ -273,23 +275,39 @@ NGP_KW = dict(bound=1.0, num_levels=4, level_dim=4, log2_bricks=10,
 SLICE_RENDER = dict(grid_size=32, ray_chunk=1024, **PROXY_KW)
 
 
-def _whole_slice(**change):
+def _two_cascade_shell(H: int):
+    """A 2-cascade grid of bound 2: the r = 0.5 shell in both levels (level
+    0 over [-1, 1]^3, level 1 over [-2, 2]^3)."""
+    lv = [shell_occupancy(H, bound=b, device="cpu") for b in (1.0, 2.0)]
+    dens = torch.cat([g.density for g in lv])
+    return OccupancyGrid(density=dens, occ=(dens.reshape(-1) > 0.01).to(
+        torch.uint8), mean_density=dens.mean(),
+        iter_density=torch.zeros((), dtype=torch.int32))
+
+
+def _whole_slice(crop=None, bound=1.0, **change):
     H = W = 64
-    jm = jngp.NGPConfig(**NGP_KW)
+    ngp_kw = dict(NGP_KW, bound=bound)
+    jm = jngp.NGPConfig(**ngp_kw)
     p = jax.tree.map(np.asarray, jngp.init(jax.random.PRNGKey(0), jm))
     p["grid"] = p["grid"] * 1e4          # sigma well above and below 1
-    occ = shell_occupancy(SLICE_RENDER["grid_size"], device="cpu")
+    kw = dict(SLICE_RENDER, bound=bound, **change)
+    if bound > 1:
+        kw["cascades"] = 2
+        occ = _two_cascade_shell(kw["grid_size"])
+    else:
+        occ = shell_occupancy(kw["grid_size"], device="cpu")
     intr = sphere_intrinsics(H, W)
     pose = orbit_pose(1.2, 0.7, 2.0)     # not a training pose
-    kw = dict(SLICE_RENDER, **change)
     want = jr.render_image(
         jax_field_apply, jm, jax.tree.map(jnp.asarray, p),
         jnp.asarray(occ.occ.numpy()), pose, intr, H, W,
         jr.RenderConfig(**kw), sigma_apply=jax_sigma_apply,
         color_apply=jax_color_apply,
-        density=jnp.asarray(occ.density.numpy()))
+        density=jnp.asarray(occ.density.numpy()), crop_aabb=crop)
     got = render_frame(params_from_jax(p, device="cpu"), occ, pose, intr, H, W,
-                       tngp.NGPConfig(**NGP_KW), tr.RenderConfig(**kw))
+                       tngp.NGPConfig(**ngp_kw),
+                       tr.RenderConfig(**kw), crop_aabb=crop)
     img_t, img_j = _np(got["image"]), np.asarray(want["image"])
     assert img_t.shape == (H, W, 3)
     live_t = _np(got["weights_sum"]) > 0
@@ -302,6 +320,7 @@ def _whole_slice(**change):
     assert -10 * np.log10(np.mean(err ** 2) + 1e-20) >= 45.0
     np.testing.assert_allclose(_np(got["depth"]), np.asarray(want["depth"]),
                                rtol=0, atol=5e-2)
+    return got
 
 
 def test_whole_slice_matches_jax_render_image():
@@ -318,6 +337,50 @@ def test_whole_slice_two_round_matches_jax_render_image():
     _whole_slice(proxy_samples=32, infer_color_cap=8)
 
 
+# the viewer's crop that halves x (keeps x >= 0)
+HALF_X = np.array([0.0, -1.0, -1.0, 1.0, 1.0, 1.0], np.float32)
+
+
+@pytest.mark.parametrize("mode", ["proxy", "pool"])
+def test_crop_frame_matches_jax_render_image(mode):
+    """render_image(crop_aabb=) on the proxy and the pool path: the crop
+    intersects the occupied AABB, and the kept half renders as JAX's."""
+    got = _whole_slice(crop=HALF_X, infer_mode=mode)
+    full = _whole_slice(infer_mode=mode)
+    assert got["live"] < full["live"]
+
+
+def test_empty_crop_renders_background():
+    got = _whole_slice_background(crop=np.array([0.9, 0.9, 0.9, 1, 1, 1],
+                                                np.float32))
+    assert got["live"] == 0 and got["chunks"] == 0
+
+
+def _whole_slice_background(crop):
+    occ = shell_occupancy(SLICE_RENDER["grid_size"], device="cpu")
+    mcfg = tngp.NGPConfig(**NGP_KW)
+    params = tngp.init(torch.Generator().manual_seed(0), mcfg)
+    out = render_frame(params, occ, orbit_pose(1.2, 0.7, 2.0),
+                       sphere_intrinsics(16, 16), 16, 16, mcfg,
+                       tr.RenderConfig(**SLICE_RENDER), bg_color=0.25,
+                       crop_aabb=crop)
+    assert torch.equal(out["image"], torch.full((16, 16, 3), 0.25))
+    return out
+
+
+@pytest.mark.parametrize("dt_gamma", [0.0, 1 / 128])
+def test_two_cascade_frame_matches_jax_render_image(dt_gamma):
+    """A scene of bound 2 (2 cascades): the AABB-hit branch, every pixel
+    against the occupied AABB and the hits through the pool path, the
+    proxy mode falling back to it as in JAX; with and without the growing
+    step."""
+    _whole_slice(bound=2.0, dt_gamma=dt_gamma, max_steps=256)
+
+
+def test_two_cascade_crop_matches_jax_render_image():
+    _whole_slice(crop=HALF_X, bound=2.0, max_steps=256)
+
+
 def test_empty_grid_renders_background():
     occ = shell_occupancy(16, sigma=0.0, device="cpu")
     cfg = tr.RenderConfig(grid_size=16, **PROXY_KW)
@@ -330,6 +393,8 @@ def test_empty_grid_renders_background():
 
 
 def test_unported_branches_raise():
+    """Deferred shading still raises; the branches ported since render:
+    the two-round proxy and a two-cascade grid (the AABB-hit path)."""
     occ = shell_occupancy(16, device="cpu")
     intr = sphere_intrinsics(16, 16)
     pose = orbit_pose(1.2, 0.7, 2.0)
@@ -346,9 +411,11 @@ def test_unported_branches_raise():
     two_cascades = dataclasses.replace(base, cascades=2)
     prepass = tr.PrepassState.build(torch.cat([occ.occ, occ.occ]),
                                     two_cascades)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(params, None, pose, intr, 16, 16, mcfg, two_cascades,
-                     prepass=prepass)
+    assert prepass.occ_dil is None and prepass.dens8 is None
+    out = render_frame(params, None, pose, intr, 16, 16, mcfg, two_cascades,
+                       prepass=prepass)
+    assert 0 < out["live"] < 16 * 16 and out["chunks"] == 1
+    assert bool(torch.isfinite(out["image"]).all())
     # without the density grid there is no corner table: the pool path
     no_density = tr.PrepassState.build(occ.occ, base)
     assert no_density.dens8 is None
