@@ -23,9 +23,12 @@ imported environments, the light modes and rotation) and the vertex
 encoder with its progressive levels; then the viewer (``ViewerApp`` and
 ``serve``, in this process and through ``main_torch.py --gui``), a scene
 of JPEG frames and ``main_nerf_torch.py --bound 2 --dt_gamma 1/128``.
-Phases, run in the order 1-6, 14, 7-10, then 16's viewer, 11-13, 15 and
-16 at once: after phase 10 the CLIs of phases 13 and 15 start as
-subprocesses and the rest of phases 15 and 16 as worker processes
+After the NGP phases, the per-corner hash grid with the NGP's learned
+background sphere, an importance-sampled frame, Morton codes and
+``packbits``.  Phases, run in the order 1-6, 14, 7, 8, 17, 9, 10, then
+16's viewer, 11-13, 15 and 16 at once: after phase 10 the CLIs of
+phases 13 and 15 start as subprocesses and the rest of phases 15 and 16
+as worker processes
 (``chip_smoke.py --worker relight`` and ``--worker viewer``), all on the
 same card beside phases 11-13 of this process, which then reads their
 results (their walls and rates are taken under that load, and phase 14's
@@ -80,10 +83,13 @@ exit and no result line, and stops every process it started:
               the JAX package's cell less 1 dB, the live and baked frames
               held against their plain-selection frames, launches ==
               chunks, ms/frame over 3 poses; the live field at the baked
-              arm's settings (K 16, cap 5), beside the baked frame;
+              arm's settings (K 16, cap 5), beside the baked frame; the
+              pool frame's minimum pixel, and as a probe the same with
+              ``seg_sum`` in f64;
  11. texture: the flat texture pipeline on phase 10's trained field:
               ``field_io.save_field`` exports 256 patches of 128^2 texels
-              (ray cast, exact projection, encode), ``QuiltingSynthesizer``
+              (ray cast, exact projection, encode), the flat quilting CLI
+              ``patch_matching_and_quilting_torch.py`` (a subprocess)
               quilts a 2048^2 canvas on the host, ``load_field`` imports
               it (mode 'field', 50 grid refreshes over the z = 0 slab)
               and 800x800 frames look down onto it through
@@ -186,6 +192,20 @@ exit and no result line, and stops every process it started:
               advancing, ``stop_training`` and ``switch_visual_mode``
               through /control, exit 0 on SIGTERM; log
               chiprun_out/cli_gui.log).
+ 17. background: after phase 8, the NGP at NGPConfig's defaults (16
+              levels x 2, 2^19 rows a level) with the per-corner grid
+              (``encoder='hash'``) and the learned background sphere
+              (``bg_radius`` 4), trained with phase 7's schedule: the loss
+              falls, the background net's weights move; training-view and
+              novel-view PSNR through both selections, each gated at phase
+              8's packed arm less 1 dB; image = image(bg=0) + (1 -
+              weights_sum) * bg within 1e-5; each selection's frame
+              against its plain-selection frame; launches == chunks; an
+              800x800 importance-sampled frame (``render/importance.py``)
+              and its PSNR; ``morton3d`` / ``morton3d_invert`` over every
+              cell of the trained 128^3 grid and ``packbits`` of its
+              density; the per-corner and the packed encode's device time
+              at the step's points.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -197,8 +217,8 @@ workspaces to build/relight/, phase 16's files to build/viewer/.
 phases 1, 2 and 15 in this process (with an SH arm of its own for the
 imports, and the CLIs on a scene and template written for them), ``--only
 viewer`` phases 1, 2 and 16 in this process (the viewer on a curved field
-trained 48 steps, --gui on a 50-step undistilled run); none prints result
-lines.
+trained 48 steps, --gui on a 50-step undistilled run), ``--only
+background`` phases 1, 2, 7, 8 and 17; none prints result lines.
 """
 
 from __future__ import annotations
@@ -278,6 +298,32 @@ BENCH_RENDER = dict(bound=1.0, cascades=1, grid_size=128, max_steps=384,
 # TrainConfig of bench.py's NGP arm, and its 50 + 650 steps
 BENCH_TRAIN = dict(lr=1e-2, total_steps=2000, num_rays=4096, grid_decay=0.85)
 WARM_STEPS, TRAIN_STEPS = 50, 650
+# the per-corner grid and the learned background sphere (phase 17), in
+# two arms with phase 7's schedule: the per-corner NGP (NGPConfig's
+# defaults, 16 levels x 2, 2^19 rows a level, resolution 2048, with
+# encoder='hash') on phase 7's scene, each PSNR gated at phase 8's
+# packed arm's less BG_PSNR_SLACK (the two encoders hash differently);
+# and the same NGP with a background sphere of radius BG_RADIUS around
+# the cameras' orbit of radius 2 (the JAX package's
+# tests/test_e2e_ngp.py:84), on the same cameras and sphere inside a room
+# painted at that radius (RoomScene), its training-view PSNR gated at
+# its step-0 frame's plus BG_GAIN_MIN (no packed or JAX cell of that
+# scene exists).  The sphere arm's novel view is printed, not gated: on
+# an 8-view object scene the sphere arm keeps its grid occupied, a fog
+# that the training march integrates and the proxy's 4-8 samples a ray
+# decimate (PERF.md, ROADMAP Queue 3; scripts/torch_background_probe.py).
+# The composite image = image(bg=0) + (1 - weights_sum) * bg within
+# BG_COMPOSITE_ATOL (the same f32 sums in both frames).
+BG_NGP = dict(encoder="hash")
+BG_RADIUS = 4.0
+# the sphere arm's warm-up and timed steps, cut from phase 7's 50 + 650
+# to keep the smoke's wall (its gate is its own step-0 frame)
+BG_SPHERE_STEPS = (50, 300)
+BG_PSNR_SLACK = 1.0
+BG_GAIN_MIN = 3.0
+BG_COMPOSITE_ATOL = 1e-5
+# rays a chunk of the importance frame (128 + 128 samples a ray)
+IMPORTANCE_CHUNK = 4096
 SMALL_NGP = dict(bound=1.0, num_levels=4, level_dim=4, log2_bricks=10,
                  desired_resolution=256)
 SMALL_RENDER = dict(bound=1.0, cascades=1, grid_size=32, ray_chunk=1024,
@@ -870,6 +916,55 @@ def op_shares(fn, top: int = 8):
             ][:top]
 
 
+def room_colour(polar: np.ndarray) -> np.ndarray:
+    """[..., 3] paint of phase 17's room, a smooth colour field over the
+    normalised polar coordinates [..., 2] of ``ops.polar_from_ray``."""
+    theta = (polar[..., 0] + 1.0) * np.pi / 2
+    phi = polar[..., 1] * np.pi
+    return np.stack([0.5 + 0.3 * np.sin(4 * phi) * np.sin(3 * theta),
+                     0.5 + 0.3 * np.cos(5 * theta),
+                     0.5 + 0.3 * np.sin(3 * phi + 2 * theta)],
+                    -1).astype(np.float32)
+
+
+def room_gt(ds, pose, radius: float = BG_RADIUS) -> np.ndarray:
+    """[H, W, 3] the synthetic sphere seen from ``pose`` inside a painted
+    sphere of ``radius`` (phase 17's scene): each miss ray shows the
+    paint where it leaves the room, a background with parallax between
+    the cameras."""
+    fx, fy, cx, cy = ds.intrinsics
+    j, i = np.meshgrid(np.arange(ds.H, dtype=np.float32),
+                       np.arange(ds.W, dtype=np.float32), indexing="ij")
+    d = np.stack([(i + 0.5 - cx) / fx, (j + 0.5 - cy) / fy,
+                  np.ones_like(i)], -1)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True) @ pose[:3, :3].T
+    o = np.asarray(pose[:3, 3], np.float64)
+    b = d @ o
+    t = -b + np.sqrt(np.maximum(b * b - (o @ o - radius ** 2), 0.0))
+    p = o + t[..., None] * d
+    theta = np.arctan2(np.sqrt(p[..., 0] ** 2 + p[..., 2] ** 2), p[..., 1])
+    phi = np.arctan2(p[..., 2], p[..., 0])
+    paint = room_colour(np.stack([2 * theta / np.pi - 1, phi / np.pi], -1))
+    from nerf_texture_tpu_torch.data.synthetic import render_gt_sphere
+
+    gt = render_gt_sphere(pose, ds.intrinsics, ds.H, ds.W,
+                          ds.sphere_radius).astype(np.float32) / 255.0
+    return gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:]) * paint
+
+
+class RoomScene:
+    """``ds``'s cameras with RGB frames of ``room_gt``: phase 17's
+    scene."""
+
+    def __init__(self, ds):
+        self.poses, self.intrinsics = ds.poses, ds.intrinsics
+        self.H, self.W, self.num_frames = ds.H, ds.W, ds.num_frames
+        self.radius, self.sphere_radius = ds.radius, ds.sphere_radius
+        self.images = np.stack([np.round(np.clip(room_gt(ds, p), 0, 1)
+                                         * 255).astype(np.uint8)
+                                for p in ds.poses])
+
+
 def white_gt(ds, pose):
     """The analytic ground truth of a pose on a white background."""
     from nerf_texture_tpu_torch.data.synthetic import render_gt_sphere
@@ -1004,8 +1099,9 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
                tr.render_frame(npose, use_ema=False,
                                plain_select=True)["image"].cpu().numpy(),
                card)
-    psnrs["pool"] = psnr_of(tr.render_frame(npose, use_ema=False,
-                                            parity=True)["image"], gt)
+    pool = tr.render_frame(npose, use_ema=False, parity=True)["image"]
+    psnrs["pool"] = psnr_of(pool, gt)
+    pool_minimum(tr, npose, pool, card)
     psnrs["ema_parity"] = psnr_of(tr.render_frame(npose, use_ema=True,
                                                   parity=True)["image"], gt)
     live_ms = walls[1:]
@@ -1081,30 +1177,65 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
             "max_abs_err": err, "psnr_live": psnrs["live"]}, tr
 
 
-def quilt(field_path: str, tex_path: str, size: int) -> tuple:
-    """Quilt a field npz's patches (features || phi || local TBN) into a
-    size^2 canvas and write the texture npz, as the reference's
-    patch_matching_and_quilting does; returns the canvas's shape."""
-    from nerf_texture_tpu_torch.synthesis.quilting import (
-        QuiltingConfig, QuiltingSynthesizer)
+def pool_minimum(tr, pose, image, card: str):
+    """Prints the trained pool frame's minimum pixel and its negative
+    values (ROADMAP Queue 3 item 3), then, as probes only, the same frame
+    with ``seg_sum``'s cumulative sums in f64, and with those and
+    ``flat_weights``' in f64 too: a ray's weights_sum and transmittance
+    are differences of f32 running sums over the whole chunk's samples,
+    whose rounding can lift weights_sum past 1 and turn (1 - weights_sum)
+    * bg negative."""
+    from nerf_texture_tpu_torch.render import compact, renderer
 
-    data = np.load(field_path, allow_pickle=True)
-    ps = data["patches"].shape[1]
-    patches = np.concatenate(
-        [data["patches"], data["patch_phi_embed"],
-         data["patch_local_tbn"].reshape(*data["patch_local_tbn"].shape[:3],
-                                         9)], -1)
-    syn = QuiltingSynthesizer(
-        patches, QuiltingConfig(output_size=(size, size), seed=0),
-        match_dim=data["patches"].shape[-1],
-        sample_tbn=data["patch_sample_tbn"],
-        picked_vertices=data["picked_vertices"],
-        patch_length=float(data["grid_gap"]) * ps)
-    syn.synthesize()
-    tex = syn.export(grid_gap=float(data["grid_gap"]),
-                     phi_embed_dim=data["patch_phi_embed"].shape[-1])
-    np.savez(tex_path, **{k: v for k, v in tex.items() if v is not None})
-    return tex["features"].shape
+    seg_sum, flat_weights = compact.seg_sum, compact.flat_weights
+
+    def seg_sum_f64(x, offsets):
+        if not x.is_floating_point():
+            return seg_sum(x, offsets)
+        return seg_sum(x.to(torch.float64), offsets).to(x.dtype)
+
+    def flat_weights_f64(sigmas, flat):
+        w, trans = flat_weights(sigmas.to(torch.float64), flat._replace(
+            dts=flat.dts.to(torch.float64)))
+        return w.to(sigmas.dtype), trans.to(sigmas.dtype)
+
+    def frame(**patch):
+        for name, fn in patch.items():
+            setattr(renderer, name, fn)
+            setattr(compact, name, fn)
+        try:
+            return tr.render_frame(pose, use_ema=False, parity=True)["image"]
+        finally:
+            for name, fn in (("seg_sum", seg_sum),
+                             ("flat_weights", flat_weights)):
+                setattr(renderer, name, fn)
+                setattr(compact, name, fn)
+
+    probes = {"seg_sum in f64": frame(seg_sum=seg_sum_f64),
+              "seg_sum and flat_weights in f64": frame(
+                  seg_sum=seg_sum_f64, flat_weights=flat_weights_f64)}
+    print(f"curved pool: minimum pixel {float(image.min()):.6f}, "
+          f"{int((image < 0).sum())} negative values (f32 as the frame "
+          f"runs); probes: " + "; ".join(
+              f"{k}: {float(v.min()):.6f}, {int((v < 0).sum())} negative, "
+              f"max abs from the f32 frame {float((v - image).abs().max()):.3g}"
+              for k, v in probes.items()) + f" ({card})")
+
+
+def quilt(field_path: str, tex_path: str, size: int) -> tuple:
+    """Quilt a field npz's patches into a size^2 canvas and write the
+    texture npz with the flat quilting CLI,
+    ``patch_matching_and_quilting_torch.py`` (a subprocess; its log
+    cli_quilt_<size>.log beside the other CLIs'); returns the canvas's
+    shape."""
+    code, out, _ = cli_run(["patch_matching_and_quilting_torch.py",
+                            field_path, "--output_size", str(size), "--out",
+                            tex_path], f"cli_quilt_{size}")
+    check(code == 0 and f"saved {tex_path}" in out,
+          f"patch_matching_and_quilting_torch.py exited {code}: "
+          f"{out[-2000:]}")
+    with np.load(tex_path, allow_pickle=True) as tex:
+        return tex["features"].shape
 
 
 def facing_pose(normal, radius: float, tilt: float = 0.0):
@@ -1209,8 +1340,9 @@ def texture_phase(dev, card: str, ds, tr) -> dict:
     t0 = time.perf_counter()
     shape = quilt(field_path, tex_path, TEXTURE_SIZE)
     quilt_s = time.perf_counter() - t0
-    print(f"texture: quilting {quilt_s:.2f} s (host), canvas {shape[0]}x"
-          f"{shape[1]} x {shape[2]} feature channels ({card})")
+    print(f"texture: quilting {quilt_s:.2f} s (patch_matching_and_quilting_"
+          f"torch.py, host), canvas {shape[0]}x{shape[1]} x {shape[2]} "
+          f"feature channels ({card})")
     check(shape[0] >= TEXTURE_SIZE and shape[1] >= TEXTURE_SIZE,
           f"canvas {shape}")
     del exp
@@ -3066,6 +3198,467 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def encode_times(fn_fwd, fn_step) -> tuple:
+    """(kernels, device ms) of one forward and of one forward + backward,
+    each profiled after two warm-up calls."""
+    out = []
+    for fn in (fn_fwd, fn_step):
+        fn()
+        fn()
+        out.append(profile_frame(fn))
+    return tuple(out)
+
+
+def train_arm(ds, mcfg, rcfg, tcfg, dev, name: str, card: str,
+              steps=(WARM_STEPS, TRAIN_STEPS)):
+    """A Trainer of ``mcfg`` on ``ds`` trained ``steps`` (warm-up, timed;
+    phase 7's by default) in full f32; prints its losses, it/s, grid and
+    peak memory and checks that the loss is finite and falls.  Returns
+    (trainer, last metrics)."""
+    from nerf_texture_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = Trainer(ds, mcfg, rcfg, tcfg, seed=7, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = trainer.train(steps[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = trainer.train(steps[1])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    losses = np.asarray(warm["losses"] + run["losses"])
+    occ = trainer.state.occ
+    print(f"background: {name}: loss step 1 {losses[0]:.5f}, step "
+          f"{len(losses)} {losses[-1]:.5f}; mean of first/last 50: "
+          f"{losses[:50].mean():.5f} / {losses[-50:].mean():.5f}; "
+          f"samples/ray {run['mean_samples']:.1f}; {steps[0]} steps in "
+          f"{warm_s:.2f} s, {steps[1]} in {train_s:.2f} s = "
+          f"{steps[1] / train_s:.2f} it/s; {int(occ.iter_density)} grid "
+          f"refreshes, {int(occ.occ.sum())} of {occ.occ.numel()} cells "
+          f"occupied; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB ({card})")
+    check(bool(np.isfinite(losses).all()), f"background {name}: non-finite "
+          f"loss")
+    check(losses[-50:].mean() < losses[:50].mean(),
+          f"background {name}: the training loss did not fall")
+    return trainer, run
+
+
+def arm_frames(trainer, gts: dict, poses: dict, name: str, card: str,
+               plain_view: str) -> tuple:
+    """Frames of a trained NGP at ``poses`` ({view: pose}) through both
+    selections (CDF cap 4, top-k cap 8): launches == chunks for each
+    kernel, the frame of ``plain_view`` against its plain-selection
+    frame, PSNR against ``gts`` ({view: [H, W, 3]}).  Returns
+    ({view_selection: PSNR}, {selection: launches}, {view_selection:
+    frame})."""
+    from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
+                                                         proxy_select_cdf)
+    from nerf_texture_tpu_torch.render.renderer import PrepassState
+    from nerf_texture_tpu_torch.train.trainer import render_frame
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    ds, mcfg, occ = trainer.dataset, trainer.mcfg, trainer.state.occ
+    cfgs = {"cdf": trainer.rcfg,
+            "topk": dataclasses.replace(trainer.rcfg, infer_cdf=False,
+                                        infer_color_cap=8)}
+    kernels = {"cdf": proxy_select_cdf, "topk": proxy_select}
+    psnrs, launches, outs = {}, {}, {}
+    for sel, kernel in kernels.items():
+        prepass = PrepassState.build(occ.occ, cfgs[sel], density=occ.density)
+
+        def frame(pose, plain_select=False):
+            return render_frame(trainer.state.params, None, pose,
+                                ds.intrinsics, ds.H, ds.W, mcfg, cfgs[sel],
+                                prepass=prepass, plain_select=plain_select)
+
+        frame(poses[plain_view])                             # warm-up
+        torch.cuda.synchronize()
+        proxy_select_cdf.launches = proxy_select.launches = 0
+        chunks, walls = 0, []
+        for view, pose in poses.items():
+            t0 = time.perf_counter()
+            out = frame(pose)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            img = out["image"]
+            check(tuple(img.shape) == (ds.H, ds.W, 3)
+                  and bool(torch.isfinite(img).all())
+                  and float(img.min()) >= 0.0 and out["live"] > 0,
+                  f"background {name} {sel} {view}: shape {img.shape}, "
+                  f"live {out['live']}, or non-finite / negative pixels")
+            chunks += out["chunks"]
+            psnrs[f"{view}_{sel}"] = psnr_of(img, gts[view])
+            outs[f"{view}_{sel}"] = out
+        launches[sel] = kernel.launches
+        check(launches[sel] > 0 and launches[sel] == chunks,
+              f"background {name} {sel}: {launches[sel]} kernel launches "
+              f"for {chunks} chunks")
+        check_twin(f"background {name} {sel}",
+                   outs[f"{plain_view}_{sel}"]["image"].cpu().numpy(),
+                   frame(poses[plain_view], plain_select=True)["image"]
+                   .cpu().numpy(), card)
+        print(f"background: {name} {sel} {ds.H}x{ds.W}: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms/frame "
+              f"({', '.join(poses)}); live rays "
+              f"{[outs[f'{v}_{sel}']['live'] for v in poses]}; launches "
+              f"{launches[sel]} for {chunks} chunks ({card})")
+    return psnrs, launches, outs
+
+
+def background_phase(dev, card: str, ds, packed: dict) -> dict:
+    """Phase 17: the per-corner grid (``encoder='hash'``) and the learned
+    background sphere, in two arms trained with phase 7's schedule: the
+    per-corner NGP on phase 7's scene, its frames through both selections
+    gated at phase 8's packed-arm PSNRs (``packed``) less BG_PSNR_SLACK,
+    Morton codes and ``packbits`` over its grid and its encode's device
+    time beside the packed one's; and the per-corner NGP with the
+    background sphere (``bg_radius`` 4) on the same cameras and sphere
+    inside a painted room (``RoomScene``), its frames gated at its
+    step-0 frames plus BG_GAIN_MIN, the composite relation, its
+    background net moved, an importance-sampled frame.  Each kernel frame
+    against its plain-selection frame, launches == chunks.  Returns the
+    launches of each selection's frames."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.rays import get_rays
+    from nerf_texture_tpu_torch.models import ngp
+    from nerf_texture_tpu_torch.ops import (hash_encode_bound, morton3d,
+                                            morton3d_invert, occupancy,
+                                            polar_from_ray)
+    from nerf_texture_tpu_torch.ops.hashgrid_packed import (
+        packed_encode_bound)
+    from nerf_texture_tpu_torch.render.importance import (
+        render_rays_importance)
+    from nerf_texture_tpu_torch.render.renderer import (PrepassState,
+                                                        RenderConfig,
+                                                        render_image)
+    from nerf_texture_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, ngp_background_image, ngp_color_apply,
+        ngp_field_apply, ngp_infer_params, ngp_sigma_apply, param_leaves)
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    H, W = ds.H, ds.W
+    rcfg = RenderConfig(**BENCH_RENDER)
+    tcfg = TrainConfig(**BENCH_TRAIN)
+    novel = orbit_pose(np.pi / 2 + 0.2, 0.3, ds.radius)
+    poses = {"train": ds.poses[0], "novel": novel}
+    launches = {"cdf": 0, "topk": 0}
+
+    # -- the per-corner NGP on phase 7's scene -----------------------------
+    mcfg = ngp.NGPConfig(**BG_NGP)
+    spec = mcfg.grid_spec
+    print(f"background: per-corner NGP {spec.num_levels} levels x "
+          f"{spec.level_dim}, {spec.table_size} table rows, on phase 7's "
+          f"scene and schedule")
+    trainer, run = train_arm(ds, mcfg, rcfg, tcfg, dev, "per-corner", card)
+    psnrs, arm_launches, _ = arm_frames(
+        trainer, {v: white_gt(ds, p) for v, p in poses.items()}, poses,
+        "per-corner", card, "novel")
+    for sel in launches:
+        launches[sel] += arm_launches[sel]
+    for key, value in psnrs.items():
+        floor = packed[key] - BG_PSNR_SLACK
+        print(f"background: per-corner {key.replace('_', ' view, ')} PSNR "
+              f"{value:.2f} dB (packed arm, phase 8: {packed[key]:.2f}; gate "
+              f">= {floor:.2f}) ({card})")
+        check(value >= floor, f"background per-corner {key} PSNR "
+              f"{value:.2f} < {floor:.2f}")
+
+    # Morton codes and packbits over its trained grid
+    occ = trainer.state.occ
+    G = rcfg.grid_size
+    axis = torch.arange(G, device=dev)
+    cells = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"),
+                        -1).reshape(-1, 3).to(torch.int32)
+    codes = morton3d(cells)
+    check(torch.equal(morton3d_invert(codes), cells),
+          "morton3d_invert(morton3d) is not the identity")
+    check(torch.equal(torch.sort(codes.to(torch.int64)).values,
+                      torch.arange(G ** 3, device=dev)),
+          "the Morton codes are not a permutation of the cells")
+    thresh = torch.clamp(occ.mean_density, max=rcfg.density_thresh)
+    bitfield = occupancy.packbits(occ.density, thresh)
+    bits = ((bitfield[:, None].to(torch.int32)
+             >> torch.arange(8, device=dev, dtype=torch.int32)) & 1)
+    bits = bits.reshape(-1).to(torch.bool)
+    check(torch.equal(bits, occ.density.reshape(-1) > thresh),
+          "packbits differs from density > thresh")
+    check(torch.equal(bits, occ.occ.to(torch.bool)),
+          "packbits differs from the grid's occupancy")
+    print(f"background: morton3d / morton3d_invert round-trip all {G}^3 "
+          f"cells; packbits of the trained density: {bitfield.numel()} "
+          f"bytes, {int(bits.sum())} cells set == occupancy ({card})")
+
+    # the per-corner encode against the packed one at the step's points
+    n_pts = int(round(tcfg.num_rays * run["mean_samples"]))
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((n_pts, 3), generator=g, device=dev) - 0.5
+    pspec = ngp.NGPConfig(**BENCH_NGP).packed_spec
+    tables = {"hash": trainer.state.params["grid"].detach().clone()
+              .requires_grad_(True),
+              "packed": pspec.init(g).requires_grad_(True)}
+    encoders = {"hash": lambda t: hash_encode_bound(x, t, spec),
+                "packed": lambda t: packed_encode_bound(x, t, pspec,
+                                                        amp=True)}
+    dims = {"hash": spec.output_dim, "packed": pspec.output_dim}
+    for name, enc in encoders.items():
+        t = tables[name]
+        cot = torch.randn((n_pts, dims[name]), generator=g, device=dev)
+
+        def fwd():
+            with torch.no_grad():
+                enc(t)
+
+        def step():
+            enc(t).backward(cot)
+            t.grad = None
+
+        (n_f, ms_f), (n_s, ms_s) = encode_times(fwd, step)
+        print(f"background: {name} encode of {n_pts} points "
+              f"({tcfg.num_rays} rays x {run['mean_samples']:.1f} samples): "
+              f"forward {ms_f:.3f} ms in {n_f} kernels, forward + backward "
+              f"{ms_s:.3f} ms in {n_s} kernels (device time) ({card})")
+    del trainer, tables, occ, bitfield, bits, codes, cells
+    torch.cuda.empty_cache()
+
+    # -- with the background sphere, in the painted room --------------------
+    mcfg = ngp.NGPConfig(**BG_NGP, bg_radius=BG_RADIUS)
+    room = RoomScene(ds)
+    gts = {v: room_gt(ds, p, BG_RADIUS) for v, p in poses.items()}
+    step0 = Trainer(room, mcfg, rcfg, tcfg, seed=7, device=dev)
+    step0.mark_untrained()
+    psnr0 = {v: psnr_of(step0.render_frame(p, use_ema=False)["image"],
+                        gts[v]) for v, p in poses.items()}
+    bg0 = [t.detach().clone()
+           for t in param_leaves(step0.state.params["bg_net"])]
+    del step0
+    print(f"background: the per-corner NGP with the background sphere (r "
+          f"{mcfg.bg_radius}, 2D grid of {mcfg.bg_grid_spec.table_size} "
+          f"rows) on phase 7's cameras and sphere in a room painted at the "
+          f"sphere's radius; step-0 CDF frames {psnr0['train']:.2f} / "
+          f"{psnr0['novel']:.2f} dB (training / novel view)")
+    trainer, run = train_arm(room, mcfg, rcfg, tcfg, dev, "sphere", card,
+                             steps=BG_SPHERE_STEPS)
+    params = trainer.state.params
+    moved = max(float((a.detach() - b).abs().max())
+                for a, b in zip(param_leaves(params["bg_net"]), bg0))
+    check(moved > 0.0, "background: the bg_net weights did not move")
+    psnrs, arm_launches, outs = arm_frames(trainer, gts, poses, "sphere",
+                                           card, "novel")
+    for sel in launches:
+        launches[sel] += arm_launches[sel]
+    for key, value in psnrs.items():
+        view = key.split("_")[0]
+        floor = psnr0[view] + BG_GAIN_MIN
+        gated = view == "train"
+        print(f"background: sphere {key.replace('_', ' view, ')} PSNR "
+              f"{value:.2f} dB (step 0: {psnr0[view]:.2f}; "
+              + (f"gate >= {floor:.2f}" if gated else "not gated")
+              + f"); bg_net moved by up to {moved:.3g} ({card})")
+        check(not gated or value >= floor, f"background sphere {key} PSNR "
+              f"{value:.2f} < {floor:.2f}")
+
+    # the composite relation on the novel CDF frame
+    out = outs["novel_cdf"]
+    occ = trainer.state.occ
+    rays = get_rays(torch.as_tensor(novel, dtype=torch.float32, device=dev),
+                    torch.as_tensor(ds.intrinsics, device=dev), H, W)
+    paint = room_colour(polar_from_ray(rays["rays_o"], rays["rays_d"],
+                                       BG_RADIUS).cpu().numpy())
+    with torch.no_grad():
+        fg = render_image(ngp_field_apply, mcfg,
+                          ngp_infer_params(params, mcfg),
+                          PrepassState.build(occ.occ, rcfg,
+                                             density=occ.density),
+                          novel, ds.intrinsics, H, W, rcfg, bg_color=0.0,
+                          sigma_apply=ngp_sigma_apply,
+                          color_apply=ngp_color_apply)
+        bg_img = ngp_background_image(params, novel, ds.intrinsics, H=H,
+                                      W=W, mcfg=mcfg).reshape(H, W, 3)
+    wsum = out["weights_sum"][..., None]
+    comp = float((out["image"] - (fg["image"] + (1.0 - wsum) * bg_img))
+                 .abs().max())
+    print(f"background: novel CDF frame vs image(bg=0) + (1 - weights_sum) "
+          f"* bg: max abs {comp:.3g}; mean weights_sum "
+          f"{float(wsum.mean()):.3f}; the learned background image "
+          f"against the room's paint: PSNR "
+          f"{psnr_of(bg_img.reshape(-1, 3), paint):.2f} dB ({card})")
+    check(torch.equal(fg["weights_sum"], out["weights_sum"]),
+          "background: the bg=0 frame composites other weights")
+    check(comp <= BG_COMPOSITE_ATOL, f"background composite: {comp}")
+
+    # one importance-sampled frame of the trained field
+    bg_flat = bg_img.reshape(-1, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        parts = []
+        for s in range(0, H * W, IMPORTANCE_CHUNK):
+            e = s + IMPORTANCE_CHUNK
+            parts.append(render_rays_importance(
+                lambda x: ngp.density(params, x, mcfg)[0],
+                lambda x, d: ngp.forward(params, x, d, mcfg),
+                rays["rays_o"][s:e], rays["rays_d"][s:e], bound=rcfg.bound,
+                min_near=rcfg.min_near, density_scale=rcfg.density_scale,
+                bg_color=bg_flat[s:e])["image"])
+        img = torch.cat(parts).reshape(H, W, 3)
+    torch.cuda.synchronize()
+    imp_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(img).all()), "importance frame: non-finite")
+    print(f"background: importance frame {H}x{W} (128 + 128 samples a ray, "
+          f"{-(-H * W // IMPORTANCE_CHUNK)} chunks of {IMPORTANCE_CHUNK} "
+          f"rays): {imp_s:.2f} s, novel-view PSNR "
+          f"{psnr_of(img, gts['novel']):.2f} dB beside the CDF frame's "
+          f"{psnrs['novel_cdf']:.2f} ({card})")
+    del trainer, params, outs, fg, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ngp_train_render(dev, card: str, mcfg, rcfg, lap):
+    """Phases 7 and 8: the NGP trained at full width on
+    SyntheticSphereDataset(8 frames, 800x800), and the trained field
+    through both selections; ``lap(name)`` closes each phase's wall.
+    Returns (the dataset, the kernel launches of each selection's frames,
+    the PSNRs of its training and novel views)."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
+                                                         proxy_select_cdf)
+    from nerf_texture_tpu_torch.render.renderer import PrepassState
+    from nerf_texture_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                      ngp_infer_params,
+                                                      render_frame)
+    from nerf_texture_tpu_torch.utils.metrics import psnr as psnr_of
+
+    # -- 7. training at full width -------------------------------------------
+    # Training multiplies f32 gradients, which TF32 would round: full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ds = SyntheticSphereDataset(n_frames=8, H=800, W=800)
+    H, W = ds.H, ds.W
+    tcfg = TrainConfig(**BENCH_TRAIN)
+    trainer = Trainer(ds, mcfg, rcfg, tcfg, seed=7, device=dev)
+    torch.cuda.synchronize()
+    print(f"train: dataset + init {time.perf_counter() - t0:.2f} s; "
+          f"{ds.num_frames} frames {H}x{W}, {tcfg.num_rays} rays/step, pool "
+          f"{rcfg.pool_mean_samples}/ray")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = trainer.train(WARM_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = trainer.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = np.asarray(warm["losses"] + run["losses"])
+    refreshes = int(trainer.state.occ.iter_density)
+    occupied = int(trainer.state.occ.occ.sum())
+    its = TRAIN_STEPS / train_s
+    print(f"train: loss step 1 {losses[0]:.5f}, step {WARM_STEPS} "
+          f"{losses[WARM_STEPS - 1]:.5f}, step {len(losses)} "
+          f"{losses[-1]:.5f}; mean of first/last 50: "
+          f"{losses[:50].mean():.5f} / {losses[-50:].mean():.5f}; "
+          f"samples/ray {run['mean_samples']:.1f}")
+    print(f"train: {WARM_STEPS} steps in {warm_s:.2f} s, {TRAIN_STEPS} steps "
+          f"in {train_s:.2f} s = {its:.2f} it/s; {refreshes} grid "
+          f"refreshes, {occupied} of {rcfg.grid_size ** 3} cells occupied; "
+          f"peak memory {train_peak_mb:.1f} MiB ({card})")
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    check(losses[-50:].mean() < losses[:50].mean(),
+          "the training loss did not fall")
+    check(occupied > 0, "the occupancy grid is empty after training")
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    lap("7")
+
+    # -- 8. the trained field through both selections ------------------------
+    rcfg_topk = dataclasses.replace(rcfg, infer_cdf=False, infer_color_cap=8)
+    prepass_topk = PrepassState.build(trainer.state.occ.occ, rcfg_topk,
+                                      density=trainer.state.occ.density)
+    params_t = ngp_infer_params(trainer.state.params, mcfg)
+
+    def topk_frame(pose, plain_select=False):
+        return render_frame(params_t, None, pose, ds.intrinsics, H, W, mcfg,
+                            rcfg_topk, prepass=prepass_topk,
+                            plain_select=plain_select)
+
+    novel = [orbit_pose(np.pi / 2 + 0.2, 0.3 + 0.1 * i, ds.radius)
+             for i in range(4)]
+    topk_frame(novel[0])                               # warm-up
+    trainer.render_frame(novel[0], use_ema=False)
+    torch.cuda.synchronize()
+    proxy_select_cdf.launches = 0
+    psnr_train = trainer.eval_psnr([0], use_ema=False)
+    check(proxy_select_cdf.launches > 0,
+          "eval_psnr never launched proxy_select_cdf")
+    proxy_select_cdf.launches = 0
+    proxy_select.launches = 0
+    out = topk_frame(ds.poses[0])
+    psnr_train_topk = psnr_of(out["image"], white_gt(ds, ds.poses[0]))
+    chunks = {"cdf": 0, "topk": out["chunks"]}
+    walls = {"cdf": [], "topk": []}
+    outs = {}
+    for name in ("cdf", "topk"):
+        for pose in novel:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (trainer.render_frame(pose, use_ema=False) if name == "cdf"
+                   else topk_frame(pose))
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            chunks[name] += out["chunks"]
+            outs.setdefault(name, out)
+    launches = {"cdf": proxy_select_cdf.launches,
+                "topk": proxy_select.launches}
+    gt_novel = white_gt(ds, novel[0])
+    psnr_novel = {k: psnr_of(outs[k]["image"], gt_novel) for k in outs}
+    for name in ("cdf", "topk"):
+        img = outs[name]["image"]
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
+        check(launches[name] > 0, f"{name}: its kernel was never launched")
+        check(launches[name] == chunks[name],
+              f"{name}: {launches[name]} kernel launches for "
+              f"{chunks[name]} chunks")
+    img_k = outs["topk"]["image"].cpu().numpy()
+    img_p = topk_frame(novel[0], plain_select=True)["image"].cpu().numpy()
+    check_twin("render: top-k", img_k, img_p, card)
+    print(f"render: trained field, inverse CDF cap 4: training view "
+          f"{psnr_train:.2f} dB (JAX package {JAX_TRAIN_PSNR}, gap "
+          f"{psnr_train - JAX_TRAIN_PSNR:+.2f}), novel view "
+          f"{psnr_novel['cdf']:.2f} dB (JAX package {JAX_NOVEL_PSNR}, gap "
+          f"{psnr_novel['cdf'] - JAX_NOVEL_PSNR:+.2f})")
+    print(f"render: trained field, top-k cap 8: training view "
+          f"{psnr_train_topk:.2f} dB, novel view {psnr_novel['topk']:.2f} dB")
+    for name in ("cdf", "topk"):
+        print(f"render: {name} {H}x{W}: "
+              f"{', '.join(f'{w:.2f}' for w in walls[name])} ms/frame "
+              f"(median {float(np.median(walls[name])):.2f}) over "
+              f"{len(novel)} novel poses; live rays {outs[name]['live']}, "
+              f"chunks/frame {outs[name]['chunks']}; launches "
+              f"{launches[name]} for {chunks[name]} chunks ({card})")
+    check(psnr_train >= TRAIN_PSNR_MIN, f"training-view PSNR {psnr_train} "
+          f"< {TRAIN_PSNR_MIN}")
+    check(psnr_novel["cdf"] >= NOVEL_PSNR_MIN, f"novel-view PSNR "
+          f"{psnr_novel['cdf']} < {NOVEL_PSNR_MIN}")
+    ngp_mesh(trainer, mcfg, dev, card)
+
+    del trainer, params_t, prepass_topk, outs
+    torch.cuda.empty_cache()
+
+    lap("8")
+    return ds, launches, {"train_cdf": psnr_train,
+                         "novel_cdf": psnr_novel["cdf"],
+                         "train_topk": psnr_train_topk,
+                         "novel_topk": psnr_novel["topk"]}
+
+
 def main() -> int:
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3106,6 +3699,7 @@ def main() -> int:
     only_entry = sys.argv[1:] == ["--only", "entry_points"]
     only_relight = sys.argv[1:] == ["--only", "relight"]
     only_viewer = sys.argv[1:] == ["--only", "viewer"]
+    only_background = sys.argv[1:] == ["--only", "background"]
     as_worker = sys.argv[1:] == ["--worker", "relight"]
     as_viewer_worker = sys.argv[1:] == ["--worker", "viewer"]
 
@@ -3134,6 +3728,19 @@ def main() -> int:
         entry_points_phase(dev, card, start_clis(relight=False)["entry"])
         print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 13 "
               f"only ({card})")
+        return 0
+    if only_background:
+        # a shorter run while working on phase 17: the device, the build,
+        # phases 7-8 (its gates) and 17; no result lines
+        walls = {}
+        mcfg, rcfg = ngp.NGPConfig(**BENCH_NGP), RenderConfig(**BENCH_RENDER)
+        ds, _, packed = ngp_train_render(dev, card, mcfg, rcfg,
+                                         lambda name: None)
+        t0 = time.perf_counter()
+        background_phase(dev, card, ds, packed)
+        walls["17"] = time.perf_counter() - t0
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phases 7, "
+              f"8 and 17 only, phase 17 {walls['17']:.1f} s ({card})")
         return 0
     if as_worker:
         # phase 15 but its CLIs, for the whole smoke, which reads this
@@ -3339,123 +3946,12 @@ def main() -> int:
     timed = timing_phase(dev, card)
     lap("14")
 
-    # -- 7. training at full width -------------------------------------------
-    # Training multiplies f32 gradients, which TF32 would round: full f32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    ds = SyntheticSphereDataset(n_frames=8, H=H, W=W)
-    tcfg = TrainConfig(**BENCH_TRAIN)
-    trainer = Trainer(ds, mcfg, rcfg, tcfg, seed=7, device=dev)
-    torch.cuda.synchronize()
-    print(f"train: dataset + init {time.perf_counter() - t0:.2f} s; "
-          f"{ds.num_frames} frames {H}x{W}, {tcfg.num_rays} rays/step, pool "
-          f"{rcfg.pool_mean_samples}/ray")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    warm = trainer.train(WARM_STEPS)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run = trainer.train(TRAIN_STEPS)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    losses = np.asarray(warm["losses"] + run["losses"])
-    refreshes = int(trainer.state.occ.iter_density)
-    occupied = int(trainer.state.occ.occ.sum())
-    its = TRAIN_STEPS / train_s
-    print(f"train: loss step 1 {losses[0]:.5f}, step {WARM_STEPS} "
-          f"{losses[WARM_STEPS - 1]:.5f}, step {len(losses)} "
-          f"{losses[-1]:.5f}; mean of first/last 50: "
-          f"{losses[:50].mean():.5f} / {losses[-50:].mean():.5f}; "
-          f"samples/ray {run['mean_samples']:.1f}")
-    print(f"train: {WARM_STEPS} steps in {warm_s:.2f} s, {TRAIN_STEPS} steps "
-          f"in {train_s:.2f} s = {its:.2f} it/s; {refreshes} grid "
-          f"refreshes, {occupied} of {rcfg.grid_size ** 3} cells occupied; "
-          f"peak memory {train_peak_mb:.1f} MiB ({card})")
-    check(bool(np.isfinite(losses).all()), "non-finite training loss")
-    check(losses[-50:].mean() < losses[:50].mean(),
-          "the training loss did not fall")
-    check(occupied > 0, "the occupancy grid is empty after training")
-    torch.backends.cuda.matmul.allow_tf32 = True
+    # -- 7-8. the NGP's training at full width, and its trained field --------
+    ds, launches, packed_psnr = ngp_train_render(dev, card, mcfg, rcfg, lap)
 
-    lap("7")
-
-    # -- 8. the trained field through both selections ------------------------
-    rcfg_topk = dataclasses.replace(rcfg, infer_cdf=False, infer_color_cap=8)
-    prepass_topk = PrepassState.build(trainer.state.occ.occ, rcfg_topk,
-                                      density=trainer.state.occ.density)
-    params_t = ngp_infer_params(trainer.state.params, mcfg)
-
-    def topk_frame(pose, plain_select=False):
-        return render_frame(params_t, None, pose, ds.intrinsics, H, W, mcfg,
-                            rcfg_topk, prepass=prepass_topk,
-                            plain_select=plain_select)
-
-    novel = [orbit_pose(np.pi / 2 + 0.2, 0.3 + 0.1 * i, ds.radius)
-             for i in range(4)]
-    topk_frame(novel[0])                               # warm-up
-    trainer.render_frame(novel[0], use_ema=False)
-    torch.cuda.synchronize()
-    proxy_select_cdf.launches = 0
-    psnr_train = trainer.eval_psnr([0], use_ema=False)
-    check(proxy_select_cdf.launches > 0,
-          "eval_psnr never launched proxy_select_cdf")
-    proxy_select_cdf.launches = 0
-    proxy_select.launches = 0
-    out = topk_frame(ds.poses[0])
-    psnr_train_topk = psnr_of(out["image"], white_gt(ds, ds.poses[0]))
-    chunks = {"cdf": 0, "topk": out["chunks"]}
-    walls = {"cdf": [], "topk": []}
-    outs = {}
-    for name in ("cdf", "topk"):
-        for pose in novel:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = (trainer.render_frame(pose, use_ema=False) if name == "cdf"
-                   else topk_frame(pose))
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-            chunks[name] += out["chunks"]
-            outs.setdefault(name, out)
-    launches = {"cdf": proxy_select_cdf.launches,
-                "topk": proxy_select.launches}
-    gt_novel = white_gt(ds, novel[0])
-    psnr_novel = {k: psnr_of(outs[k]["image"], gt_novel) for k in outs}
-    for name in ("cdf", "topk"):
-        img = outs[name]["image"]
-        check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
-        check(launches[name] > 0, f"{name}: its kernel was never launched")
-        check(launches[name] == chunks[name],
-              f"{name}: {launches[name]} kernel launches for "
-              f"{chunks[name]} chunks")
-    img_k = outs["topk"]["image"].cpu().numpy()
-    img_p = topk_frame(novel[0], plain_select=True)["image"].cpu().numpy()
-    check_twin("render: top-k", img_k, img_p, card)
-    print(f"render: trained field, inverse CDF cap 4: training view "
-          f"{psnr_train:.2f} dB (JAX package {JAX_TRAIN_PSNR}, gap "
-          f"{psnr_train - JAX_TRAIN_PSNR:+.2f}), novel view "
-          f"{psnr_novel['cdf']:.2f} dB (JAX package {JAX_NOVEL_PSNR}, gap "
-          f"{psnr_novel['cdf'] - JAX_NOVEL_PSNR:+.2f})")
-    print(f"render: trained field, top-k cap 8: training view "
-          f"{psnr_train_topk:.2f} dB, novel view {psnr_novel['topk']:.2f} dB")
-    for name in ("cdf", "topk"):
-        print(f"render: {name} {H}x{W}: "
-              f"{', '.join(f'{w:.2f}' for w in walls[name])} ms/frame "
-              f"(median {float(np.median(walls[name])):.2f}) over "
-              f"{len(novel)} novel poses; live rays {outs[name]['live']}, "
-              f"chunks/frame {outs[name]['chunks']}; launches "
-              f"{launches[name]} for {chunks[name]} chunks ({card})")
-    check(psnr_train >= TRAIN_PSNR_MIN, f"training-view PSNR {psnr_train} "
-          f"< {TRAIN_PSNR_MIN}")
-    check(psnr_novel["cdf"] >= NOVEL_PSNR_MIN, f"novel-view PSNR "
-          f"{psnr_novel['cdf']} < {NOVEL_PSNR_MIN}")
-    ngp_mesh(trainer, mcfg, dev, card)
-
-    del trainer, params_t, prepass_topk, outs
-    torch.cuda.empty_cache()
-
-    lap("8")
+    # -- 17. the per-corner grid with the learned background sphere ----------
+    background = background_phase(dev, card, ds, packed_psnr)
+    lap("17")
 
     # -- 9. the curved model's serving path ----------------------------------
     curved = curved_phase(dev, card, ds, timing)
@@ -3514,6 +4010,7 @@ def main() -> int:
     print(f"smoke: wall {time.perf_counter() - wall0:.1f} s ({card})")
     cdf_paths = {"ngp_serving_slice": slice_launches,
                  "ngp_trained_render": launches["cdf"],
+                 "ngp_background": background["cdf"],
                  "curved_live": curved["launches"],
                  "curved_trained_live": trained["live"],
                  "curved_baked": trained["baked"],
@@ -3557,6 +4054,7 @@ def main() -> int:
         kernel_line("proxy_select", "topk", 24, 8,
                     "nerf_texture_tpu/ops/proxy_select.py:49",
                     {"ngp_trained_render_topk": launches["topk"],
+                     "ngp_background_topk": background["topk"],
                      "texture_two_round": texture["texture_two_round"],
                      **entry, **relight_topk, "bound2_cli_eval": b2_topk},
                     topk_err)]}))

@@ -25,15 +25,19 @@ the two training CLIs beside the package (``main_nerf_torch.py``,
                   and per-cell anchor table
 - ``ops``      -- trunc_exp, frequency and SH encodings, packed hash-grid
                   encode (single and dual table) and its row
-                  lookup/scatter autograd pair, slab test and march,
-                  compositing, occupancy grid (refresh, sparse refresh,
-                  mark_untrained), proxy_select_cdf / proxy_select (CUDA
-                  kernels + plain twins)
-- ``models``   -- NGP; the curved model: mesh field, normal net, SH light,
-                  curved field
+                  lookup/scatter autograd pair, the per-corner hash grid,
+                  slab test, march and the background sphere's polar
+                  coordinates, compositing, occupancy grid (refresh,
+                  sparse refresh, mark_untrained, packbits), Morton codes,
+                  proxy_select_cdf / proxy_select (CUDA kernels + plain
+                  twins)
+- ``models``   -- NGP (packed or per-corner encoder, learned background
+                  sphere); the curved model: mesh field, normal net, SH
+                  light, curved field
 - ``render``   -- render_rays (training and the pool path, two-phase over
-                  ``compact.survivor_pool``) and the frame renderer
-                  (prepass, proxy or pool chunks)
+                  ``compact.survivor_pool``), the frame renderer
+                  (prepass, proxy or pool chunks) and the importance-
+                  sampling renderer
 - ``data``     -- ray generation and sampling (uniform or by error map),
                   poses, the synthetic-sphere dataset and fixtures, the
                   ``transforms.json`` loader, PNG files and PIL's Lanczos

@@ -37,7 +37,9 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(tree: Any, device: torch.device | str = "cuda") -> Any:
     """Nested dicts / lists / tuples of arrays -> the same structure of
     tensors, e.g. an NGP ``{"grid": [R, 128], "sigma_net": [{"w": [in,
-    out]}, ...], "color_net": [...]}``."""
+    out]}, ...], "color_net": [...]}`` (per corner ``"grid"`` is
+    [table_size, level_dim]; with the background sphere also
+    ``"bg_grid"`` and ``"bg_net"``)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

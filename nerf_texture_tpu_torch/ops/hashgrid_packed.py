@@ -28,17 +28,7 @@ import math
 import numpy as np
 import torch
 
-from .hashgrid import _HASH_PRIMES
-
-_U32 = 0xFFFFFFFF
-
-
-def _mul_u32(a: torch.Tensor, p: int) -> torch.Tensor:
-    """(a * p) mod 2**32 for int64 a in [0, 2**32) and p < 2**32, split
-    into 16-bit halves of p so that no int64 product overflows."""
-    lo = a * (p & 0xFFFF)
-    hi = ((a * (p >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _U32
+from .hashgrid import _HASH_PRIMES, _U32, _mul_u32
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,6 +45,22 @@ def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
     return near, far
 
 
+def polar_from_ray(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   radius: float) -> torch.Tensor:
+    """Normalised (theta, phi) in [-1, 1] of each ray's far intersection
+    with the background sphere of ``radius`` (kernel_polar_from_ray,
+    raymarching.cu:165-200; y up).  rays_o, rays_d [..., 3] -> [..., 2]."""
+    a = torch.sum(rays_d * rays_d, dim=-1)
+    b = torch.sum(rays_o * rays_d, dim=-1)
+    c = torch.sum(rays_o * rays_o, dim=-1) - radius * radius
+    t = (-b + torch.sqrt(torch.clamp(b * b - a * c, min=0.0))) / a
+    p = rays_o + t[..., None] * rays_d
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)
+    phi = torch.atan2(z, x)
+    return torch.stack([2.0 * theta / math.pi - 1.0, phi / math.pi], dim=-1)
+
+
 class MarchResult(NamedTuple):
     ts: torch.Tensor      # [N, K] sample distances (0 where invalid)
     dts: torch.Tensor     # [N, K] integration step sizes

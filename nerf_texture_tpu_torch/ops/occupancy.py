@@ -229,3 +229,13 @@ def mark_untrained(state: OccupancyGrid, poses, intrinsics, *,
         seen = torch.any(in_z & in_x & in_y, dim=0)
         density[cas] = torch.where(seen, density[cas], -1.0)
     return state._replace(density=density)
+
+
+def packbits(grid: torch.Tensor, density_thresh: float) -> torch.Tensor:
+    """Pack a float grid into a uint8 bitfield, 8 cells a byte: bit i of
+    byte n is ``grid[8n + i] > density_thresh`` (kernel_packbits,
+    raymarching/src/raymarching.cu:270-291)."""
+    bits = (grid.reshape(-1, 8) > density_thresh).to(torch.int32)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
+                           device=grid.device)
+    return torch.sum(bits * weights, dim=-1).to(torch.uint8)

@@ -789,9 +789,13 @@ def _prepass_compact(ro_b, rd_b, occ_dil, aabb, bound, min_near, *,
 
 def _frame_buffer_packed(bg, *, n: int, device) -> torch.Tensor:
     """[n, 5] packed frame accumulator (rgb | depth | wsum); the rgb lanes
-    start as the background colour (a scalar or [3])."""
+    start as the background: a scalar, an [3] colour or a full [n, 3]
+    image (the NGP's learned background sphere)."""
     bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
-    image = bg.reshape(-1).expand(n, 3)
+    if bg.numel() == 3 * n:
+        image = bg.reshape(n, 3)
+    else:
+        image = bg.reshape(-1).expand(n, 3)
     return torch.cat([image, torch.zeros((n, 2), device=device)], dim=-1)
 
 
@@ -929,8 +933,9 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     the pool path (no tau carve in the block prepass), and without a
     dilated grid (more than one cascade) the AABB-hit path.
     ``crop_aabb`` [6] (xmin, ymin, zmin, xmax, ymax, zmax), the inference
-    crop, is intersected with the occupied AABB.
-    ``plain_select``: see ``render_rays_proxy``.
+    crop, is intersected with the occupied AABB.  ``bg_color``: a scalar,
+    an [3] colour or an [H * W, 3] image, what a ray that composites no
+    weight shows.  ``plain_select``: see ``render_rays_proxy``.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: live rays rendered, chunks: chunks rendered)."""

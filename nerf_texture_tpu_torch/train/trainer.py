@@ -7,7 +7,12 @@ One training step:
   compacted sample pool -> field (AMP table read) -> composite -> MSE ->
   backward -> Adam (+ LambdaLR decay) -> EMA of the parameters
 
-and every ``grid_update_interval`` steps a density-grid refresh.
+and every ``grid_update_interval`` steps a density-grid refresh.  With
+``NGPConfig.bg_radius`` > 0 the learned background sphere
+(``ngp.background`` at ``polar_from_ray``) takes the drawn background's
+place in the render -- the target keeps the drawn one, as in the JAX
+package -- and a frame's rays that composite no weight show its image
+(``ngp_background_image``).
 Checkpoints (``save_checkpoint`` and the rotating, best and resume
 helpers below) are directories holding one ``torch.save`` file of the
 state in the JAX state's layout.  The
@@ -38,6 +43,7 @@ from ..data.rays import get_rays, sample_ray_indices
 from ..models import ngp
 from ..ops import occupancy as occ_mod
 from ..ops.hashgrid_packed import inference_table
+from ..ops.marching import polar_from_ray
 from ..ops.occupancy import OccupancyGrid
 from ..render.renderer import (PrepassState, RenderConfig, render_image,
                                render_rays)
@@ -163,6 +169,13 @@ def train_loss(params, occ: OccupancyGrid, batch: Batch, poses, images,
     else:
         bg = torch.ones((3,), device=pixels.device)
         gt_rgb = pixels[:, :3]
+    if mcfg.bg_radius > 0:
+        # the learned background sphere takes the drawn colour's place in
+        # the render (not in gt_rgb) and trains through the (1 - w_sum) *
+        # bg term (nerf/renderer.py:353-356, network.py:145-160)
+        polar = polar_from_ray(rays["rays_o"], rays["rays_d"],
+                               mcfg.bg_radius)
+        bg = ngp.background(params, polar, rays["rays_d"], mcfg)
     out = render_rays(lambda x, d: ngp.forward(params, x, d, mcfg), occ.occ,
                       rays["rays_o"], rays["rays_d"], rcfg,
                       max_samples=rcfg.max_samples_train, perturb=True,
@@ -244,6 +257,19 @@ def ngp_color_apply(params, x, d, geo_feat, mcfg: ngp.NGPConfig):
     return ngp.color(params, d, geo_feat, mcfg)
 
 
+def ngp_background_image(params, pose, intrinsics, *, H: int, W: int,
+                         mcfg: ngp.NGPConfig) -> torch.Tensor:
+    """[H * W, 3] learned background-sphere colours of a whole frame
+    (nerf/renderer.py:298-301: polar_from_ray -> the bg net), on the
+    params' device; a frame's miss rays show them."""
+    dev = params["bg_net"][0]["w"].device
+    rays = get_rays(torch.as_tensor(pose, dtype=torch.float32, device=dev),
+                    torch.as_tensor(intrinsics, dtype=torch.float32,
+                                    device=dev), H, W)
+    polar = polar_from_ray(rays["rays_o"], rays["rays_d"], mcfg.bg_radius)
+    return ngp.background(params, polar, rays["rays_d"], mcfg)
+
+
 def ngp_infer_params(params, mcfg: ngp.NGPConfig):
     """Params whose table is what inference reads: the bf16 [rows,
     row_width] copy when ``infer_table_bf16``.  Made once per set of
@@ -268,18 +294,21 @@ def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
     once per grid) is given.  ``crop_aabb`` and ``plain_select``: see
     ``render_image``.
 
+    With ``mcfg.bg_radius`` > 0 the learned background sphere's image
+    (``ngp_background_image``) replaces ``bg_color``, as in the JAX
+    trainer's ``render_frame``.
+
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live, chunks)."""
-    if mcfg.bg_radius > 0:
-        raise NotImplementedError(
-            "render_frame: the learned background sphere (bg_radius > 0) is "
-            "not ported yet (ROADMAP Queue 1, item 3)")
     if rcfg.deferred:
         raise NotImplementedError(
             "render_frame: deferred shading is not ported (ROADMAP Queue 1, "
             "item 12: port it only if an H100 profile asks for it)")
     if prepass is None:
         prepass = PrepassState.build(occ.occ, rcfg, density=occ.density)
+    if mcfg.bg_radius > 0:
+        bg_color = ngp_background_image(params, pose, intrinsics, H=H, W=W,
+                                        mcfg=mcfg)
     return render_image(ngp_field_apply, mcfg, ngp_infer_params(params, mcfg),
                         prepass, pose, intrinsics, H, W, rcfg,
                         bg_color=bg_color, sigma_apply=ngp_sigma_apply,

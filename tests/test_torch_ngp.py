@@ -179,9 +179,20 @@ def test_density_f32_table_follows_train_table_bf16(train_table_bf16):
 
 
 def test_unported_options_raise():
+    """Deferred shading still raises (ROADMAP item 12); the per-corner
+    encoder and the background sphere are ported and build."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.synthetic import (shell_occupancy,
+                                                       sphere_intrinsics)
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.trainer import render_frame
+
+    mcfg = tngp.NGPConfig(**dict(NGP_KW, encoder="hash", bg_radius=2.0))
+    params = tngp.init(torch.Generator(), mcfg)
+    assert {"bg_grid", "bg_net"} <= set(params)
+    assert tngp.encode_position(params, torch.zeros(2, 3), mcfg).shape == \
+        (2, mcfg.grid_spec.output_dim)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tngp.init(torch.Generator(), tngp.NGPConfig(bg_radius=2.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tngp.encode_position({"grid": torch.zeros(8, 128)},
-                             torch.zeros(2, 3),
-                             tngp.NGPConfig(encoder="hash"))
+        render_frame(params, shell_occupancy(16, device="cpu"),
+                     orbit_pose(1.2, 0.7, 2.0), sphere_intrinsics(16, 16),
+                     16, 16, mcfg, RenderConfig(grid_size=16, deferred=True))
