@@ -25,10 +25,11 @@ encoder with its progressive levels; then the viewer (``ViewerApp`` and
 of JPEG frames and ``main_nerf_torch.py --bound 2 --dt_gamma 1/128``.
 After the NGP phases, the per-corner hash grid with the NGP's learned
 background sphere, an importance-sampled frame, Morton codes and
-``packbits``.  Phases, run in the order 1-6, 14, 7, 8, 17, 9, 10, then
-16's viewer, 11-13, 15 and 16 at once: after phase 10 the CLIs of
-phases 13 and 15 start as subprocesses and the rest of phases 15 and 16
-as worker processes
+``packbits``.  Beside the viewer's scenes, the capture-to-scene path
+(image formats, ``data.prepare``).  Phases, run in the order 1-6, 14, 7,
+8, 17, 9, 10, then 16's viewer, 11-13, 15 and 16 (with 18) at once:
+after phase 10 the CLIs of phases 13 and 15 start as subprocesses and
+the rest of phases 15 and 16 as worker processes
 (``chip_smoke.py --worker relight`` and ``--worker viewer``), all on the
 same card beside phases 11-13 of this process, which then reads their
 results (their walls and rates are taken under that load, and phase 14's
@@ -206,6 +207,24 @@ exit and no result line, and stops every process it started:
               cell of the trained 128^3 grid and ``packbits`` of its
               density; the per-corner and the packed encode's device time
               at the step's points.
+ 18. prepare: the capture-to-scene path, in the viewer worker of phase
+              16 while ``--gui`` waits for its checkpoint: every committed
+              format fixture (tests/fixtures/formats/: palette PNGs of 1-8
+              bits with and without tRNS, 1/2/4-bit gray, Adam7 PNGs,
+              PIL's progressive JPEGs) decoded bit for bit to the arrays
+              imageio and the JAX loader gave for it, the 1-bit file
+              raising; the seconds to decode one 800x800 frame of a
+              baseline and a progressive JPEG (both held to the
+              progressive fixture's pixels), an Adam7 PNG and a palette
+              PNG (both held to their source); phase 13's scene as a
+              capture (a COLMAP text model of its cameras, 6 box-blurred
+              copies of its frames): ``remove_blurry_frames`` removes the
+              blurred copies only, ``colmap_to_transforms`` +
+              ``NeRFDataset`` give phase 13's images bit for bit and its
+              poses (mirrored: see PREPARE_MIRROR_NERF) within 1e-5, and
+              a Trainer at the bench NGP width takes 100 steps on it, the
+              loss finite and falling; ``laplacian_variance`` seconds a
+              frame and the phase's wall.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -218,7 +237,9 @@ phases 1, 2 and 15 in this process (with an SH arm of its own for the
 imports, and the CLIs on a scene and template written for them), ``--only
 viewer`` phases 1, 2 and 16 in this process (the viewer on a curved field
 trained 48 steps, --gui on a 50-step undistilled run), ``--only
-background`` phases 1, 2, 7, 8 and 17; none prints result lines.
+background`` phases 1, 2, 7, 8 and 17, ``--only prepare`` phases 1, 2,
+13's scene writer and 18 (its files to build/prepare/); none prints
+result lines.
 """
 
 from __future__ import annotations
@@ -3116,15 +3137,315 @@ def gui_cli(card: str, ws: str, plain_iters: int) -> None:
           f"SIGTERM after {wall:.1f} s ({card})")
 
 
-def scenes_phase(dev, card: str, plain_iters: int) -> dict:
+# the capture-to-scene path (phase 18): the committed format fixtures
+# (scripts/make_format_fixtures.py wrote them with PIL and imageio, each
+# beside its arrays) decoded bit for bit; 800x800 decodes timed (a
+# baseline JPEG by the port's encoder, the progressive fixture, an Adam7
+# PNG and a palette PNG built here, the last two held to their source);
+# then phase 13's scene as a capture: its cameras as a COLMAP text model,
+# PREPARE_BLURRED box-blurred copies of its frames beside them,
+# remove_blurry_frames(PREPARE_KEEP), colmap_to_transforms, NeRFDataset
+# against phase 13's (poses within PREPARE_POSE_ATOL: the quaternion round
+# trip moves them by rounding, images bit for bit), and PREPARE_STEPS
+# training steps at the bench NGP width on it.  The synthetic scene's
+# written cameras are improper (det -1: orbit_pose's right, up, forward
+# axes, in both packages), which a COLMAP quaternion cannot hold, so the
+# model holds them in the world mirrored by PREPARE_MIRROR_NERF (z -> -z
+# of the nerf world); NeRFDataset's normalisation commutes with the
+# mirror, so the round trip's poses are phase 13's mirrored in the ngp
+# frame (y -> -y), PREPARE_MIRROR_NGP
+FORMATS_DIR = os.path.join("tests", "fixtures", "formats")
+PREPARE_DIR = os.path.join("build", "prepare")
+PREPARE_BLURRED, PREPARE_BLUR, PREPARE_KEEP = 6, 9, 0.8
+PREPARE_POSE_ATOL = 1e-5
+PREPARE_MIRROR_NERF = np.diag([1.0, 1.0, -1.0, 1.0])
+PREPARE_MIRROR_NGP = np.diag([1.0, -1.0, 1.0, 1.0]).astype(np.float32)
+PREPARE_STEPS = 100
+DECODE_REPEATS = 3
+
+
+def _format_tools():
+    """scripts/make_format_fixtures.py as a module (its PNG builder needs
+    only numpy and zlib)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_format_fixtures", os.path.join("scripts",
+                                             "make_format_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _matches(arr: np.ndarray, want: dict) -> bool:
+    """``arr`` equals a fixture's expected array: its .npy, or its SHA-256
+    with shape and dtype."""
+    import hashlib
+
+    if "npy" in want:
+        ref = np.load(os.path.join(FORMATS_DIR, want["npy"]),
+                      allow_pickle=False)
+        return (arr.dtype == ref.dtype and arr.shape == ref.shape
+                and np.array_equal(arr, ref))
+    return (str(arr.dtype) == want["dtype"]
+            and list(arr.shape) == want["shape"]
+            and hashlib.sha256(np.ascontiguousarray(arr).tobytes())
+            .hexdigest() == want["sha256"])
+
+
+def format_fixtures(card: str) -> None:
+    """Every committed fixture decodes to what imageio and the JAX loader
+    gave for it; the 1-bit gray file raises in load_image."""
+    from nerf_texture_tpu_torch.data.images import load_image, read_image
+
+    with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    raised = []
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(FORMATS_DIR, name)
+        check(_matches(read_image(path), entry["imread"]),
+              f"fixture {name}: read_image differs from imageio's array")
+        if "raises" in entry["load"]:
+            try:
+                load_image(path)
+            except ValueError as e:
+                raised.append(f"{name} ({e})")
+                continue
+            check(False, f"fixture {name}: load_image did not raise")
+        check(_matches(load_image(path), entry["load"]),
+              f"fixture {name}: load_image differs from the JAX loader's")
+    check(len(raised) == 1 and raised[0].startswith("gray1.png"),
+          f"the fixtures that raised: {raised}")
+    kinds = {}
+    for n in manifest:
+        kind = re.match(r"(palette|gray|adam7|progressive)", n).group(1)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    print(f"prepare: {len(manifest)} format fixtures ("
+          f"{', '.join(f'{k} {v}' for k, v in sorted(kinds.items()))}) "
+          f"decode bit for bit to imageio's and the JAX loader's arrays; "
+          f"raises as the JAX loader does: {raised[0]} ({card})")
+
+
+def decode_times(card: str) -> dict:
+    """Seconds to decode one 800x800 frame of each kind (median of
+    DECODE_REPEATS), each decode checked."""
+    from nerf_texture_tpu_torch.data import jpeg
+    from nerf_texture_tpu_torch.data.images import read_image
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.synthetic import (render_gt_sphere,
+                                                       sphere_intrinsics)
+
+    tools = _format_tools()
+    os.makedirs(PREPARE_DIR, exist_ok=True)
+    with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
+        manifest = json.load(f)["progressive_sphere_800.jpg"]
+    # the progressive fixture's frame, made as the fixture script makes it
+    rgba = render_gt_sphere(orbit_pose(1.2, 0.7, 2.0),
+                            sphere_intrinsics(800, 800), 800, 800)
+    f = rgba.astype(np.float32) / 255.0
+    rgb = ((f[..., :3] * f[..., 3:] + (1.0 - f[..., 3:])) * 255).astype(
+        np.uint8)
+    # a palette of 216 colours (6 levels a channel), indices per pixel
+    levels = (rgb.astype(np.int64) * 6) // 256
+    idx = (levels[..., 0] * 36 + levels[..., 1] * 6 + levels[..., 2])
+    lut = np.stack(np.meshgrid(*[np.arange(6) * 51] * 3, indexing="ij"),
+                   -1).reshape(216, 3).astype(np.uint8)
+    files = {
+        "baseline JPEG": (jpeg.encode(rgb, quality=90), None),
+        "progressive JPEG": (open(os.path.join(
+            FORMATS_DIR, "progressive_sphere_800.jpg"), "rb").read(), None),
+        "Adam7 PNG (RGBA)": (tools.png_bytes(rgba, 8, 6, interlace=1,
+                                             filters=(0, 1, 2, 3, 4)), rgba),
+        "palette PNG": (tools.png_bytes(idx[..., None], 8, 3,
+                                        plte=lut.tobytes(),
+                                        filters=(0, 1, 2, 3, 4)), lut[idx]),
+    }
+    times = {}
+    for kind, (data, want) in files.items():
+        path = os.path.join(PREPARE_DIR, "decode" + (
+            ".jpg" if "JPEG" in kind else ".png"))
+        with open(path, "wb") as f:
+            f.write(data)
+        walls = []
+        for _ in range(DECODE_REPEATS):
+            t0 = time.perf_counter()
+            img = read_image(path)
+            walls.append(time.perf_counter() - t0)
+        check(img.shape[:2] == (800, 800), f"{kind}: shape {img.shape}")
+        if want is not None:
+            check(np.array_equal(img, want), f"{kind}: not its source")
+        else:
+            # the progressive file reorders the baseline file's quantised
+            # coefficients (PIL's, which the port's encoder writes byte for
+            # byte): both decode to the fixture's array
+            check(_matches(img, manifest["imread"]), f"{kind}: not the "
+                  f"progressive fixture's pixels")
+        times[kind] = float(np.median(walls))
+        print(f"prepare: decode an 800x800 {kind} ({len(data) / 1024:.1f} "
+              f"KiB): {times[kind]:.4f} s (median of {DECODE_REPEATS}; "
+              f"{min(walls):.4f}-{max(walls):.4f}) ({card})")
+    return times
+
+
+def _rotmat2qvec(R: np.ndarray) -> np.ndarray:
+    """COLMAP's rotation matrix -> (w, x, y, z) (the symmetric 4x4 whose
+    largest eigenvector is the quaternion; w >= 0)."""
+    rxx, ryx, rzx, rxy, ryy, rzy, rxz, ryz, rzz = R.flat
+    K = np.array([
+        [rxx - ryy - rzz, 0, 0, 0],
+        [ryx + rxy, ryy - rxx - rzz, 0, 0],
+        [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+        [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def _box_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """A k x k box filter of uint8 [H, W, C] (edges replicated)."""
+    r = k // 2
+    x = np.pad(img.astype(np.int64), ((r, r), (r, r), (0, 0)), mode="edge")
+    c = np.cumsum(np.cumsum(np.pad(x, ((1, 0), (1, 0), (0, 0))), 0), 1)
+    s = c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]
+    return (s // (k * k)).astype(np.uint8)
+
+
+def capture_round_trip(card: str):
+    """Phase 13's scene as a capture through the port's prepare steps;
+    returns the round trip's NeRFDataset (split 'train')."""
+    import shutil
+
+    from nerf_texture_tpu_torch.data import prepare
+    from nerf_texture_tpu_torch.data.images import read_image, write_png
+    from nerf_texture_tpu_torch.data.provider import NeRFDataset
+
+    src = os.path.join(CLI_DIR, "scene")
+    root = os.path.join(PREPARE_DIR, "capture")
+    shutil.rmtree(root, ignore_errors=True)
+    images_dir, text = os.path.join(root, "images"), os.path.join(root,
+                                                                  "text")
+    os.makedirs(images_dir)
+    os.makedirs(text)
+    with open(os.path.join(src, "transforms.json")) as f:
+        meta = json.load(f)
+    # the cameras as COLMAP writes them: PINHOLE, world2cam quaternions
+    with open(os.path.join(text, "cameras.txt"), "w") as f:
+        f.write("# Camera list with one line of data per camera:\n"
+                f"1 PINHOLE {meta['w']} {meta['h']} {meta['fl_x']!r} "
+                f"{meta['fl_y']!r} {meta['cx']!r} {meta['cy']!r}\n")
+    lines = ["# Image list with two lines of data per image:\n"]
+    blurred = []
+    for k, fr in enumerate(meta["frames"]):
+        name = os.path.basename(fr["file_path"])
+        shutil.copy(os.path.join(src, fr["file_path"]),
+                    os.path.join(images_dir, name))
+        # the mirrored world (a proper rotation), then the colmap camera
+        # axes (colmap_to_transforms' flips undone)
+        c2w = PREPARE_MIRROR_NERF @ np.asarray(fr["transform_matrix"],
+                                               np.float64)
+        c2w[0:3, 1] *= -1
+        c2w[0:3, 2] *= -1
+        w2c = np.linalg.inv(c2w)
+        q, t = _rotmat2qvec(w2c[:3, :3]), w2c[:3, 3]
+        lines.append(f"{k + 1} {' '.join(repr(float(v)) for v in q)} "
+                     f"{' '.join(repr(float(v)) for v in t)} 1 {name}\n\n")
+        if k % (len(meta["frames"]) // PREPARE_BLURRED) == 0 \
+                and len(blurred) < PREPARE_BLURRED:
+            blurred.append(f"blurred_{name}")
+            write_png(os.path.join(images_dir, blurred[-1]), _box_blur(
+                read_image(os.path.join(src, fr["file_path"])),
+                PREPARE_BLUR))
+    with open(os.path.join(text, "images.txt"), "w") as f:
+        f.write("".join(lines))
+    frames = sorted(os.listdir(images_dir))
+    lap = []
+    for name in frames:
+        img = read_image(os.path.join(images_dir, name))
+        t0 = time.perf_counter()
+        prepare.laplacian_variance(img)
+        lap.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    removed = prepare.remove_blurry_frames(images_dir, keep_ratio=PREPARE_KEEP)
+    remove_s = time.perf_counter() - t0
+    gone = sorted(set(frames) - set(os.listdir(images_dir)))
+    print(f"prepare: {len(frames)} frames {meta['h']}x{meta['w']} "
+          f"({PREPARE_BLURRED} of them {PREPARE_BLUR}x{PREPARE_BLUR} "
+          f"box-blurred copies): laplacian_variance {np.median(lap):.4f} s "
+          f"a frame (median; {min(lap):.4f}-{max(lap):.4f}); "
+          f"remove_blurry_frames(keep_ratio={PREPARE_KEEP}) removed "
+          f"{removed} in {remove_s:.2f} s: {gone} ({card})")
+    check(gone == sorted(blurred) and removed == len(blurred),
+          f"remove_blurry_frames removed {gone}, not the blurred copies "
+          f"{sorted(blurred)}")
+    t0 = time.perf_counter()
+    out = prepare.colmap_to_transforms(text, images_dir,
+                                       os.path.join(root, "transforms.json"))
+    ds = NeRFDataset(root, mode="colmap", split="train")
+    load_s = time.perf_counter() - t0
+    ref = NeRFDataset(src, mode="colmap", split="train")
+    dp = float(np.abs(ds.poses - PREPARE_MIRROR_NGP @ ref.poses).max())
+    check(ds.images.shape == ref.images.shape
+          and np.array_equal(ds.images, ref.images),
+          "the round trip's images differ from phase 13's")
+    check(dp <= PREPARE_POSE_ATOL and np.array_equal(ds.intrinsics,
+                                                     ref.intrinsics),
+          f"the round trip's poses differ by {dp} (or its intrinsics)")
+    print(f"prepare: colmap_to_transforms ({len(out['frames'])} frames) + "
+          f"NeRFDataset in {load_s:.2f} s: {ds.num_frames} training frames "
+          f"bit for bit as phase 13's, poses within {dp:.3g} of its mirrored "
+          f"ones (<= {PREPARE_POSE_ATOL}), intrinsics equal ({card})")
+    return ds
+
+
+def prepare_phase(dev, card: str) -> None:
+    """Phase 18: the format fixtures, the decode times, the capture round
+    trip on phase 13's scene, and PREPARE_STEPS steps on it."""
+    from nerf_texture_tpu_torch.models.ngp import NGPConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    format_fixtures(card)
+    decode_times(card)
+    ds = capture_round_trip(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = Trainer(ds, NGPConfig(**BENCH_NGP), RenderConfig(**BENCH_RENDER),
+                 TrainConfig(**BENCH_TRAIN), seed=7, device=dev)
+    t0 = time.perf_counter()
+    run = tr.train(PREPARE_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    losses = np.asarray(run["losses"])
+    print(f"prepare: Trainer on the round trip ({ds.num_frames} frames, "
+          f"bench NGP width): loss step 1 {losses[0]:.5f}, step "
+          f"{len(losses)} {losses[-1]:.5f}; mean of first/last 10 "
+          f"{losses[:10].mean():.5f} / {losses[-10:].mean():.5f}; "
+          f"{PREPARE_STEPS / train_s:.2f} it/s ({card})")
+    check(len(losses) == PREPARE_STEPS and bool(np.isfinite(losses).all()),
+          "non-finite loss on the round-trip scene")
+    check(losses[-10:].mean() < losses[:10].mean(),
+          "the loss on the round-trip scene did not fall")
+    del tr
+    torch.cuda.empty_cache()
+    print(f"prepare: phase 18 {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
+def scenes_phase(dev, card: str, plain_iters: int,
+                 prepare: bool = False) -> dict:
     """Phase 16 but the viewer in the smoke's process: the JPEG scene, the
-    bound-2 CLI and the --gui CLI."""
+    bound-2 CLI and the --gui CLI; with ``prepare`` phase 18 too, while
+    --gui waits for phase 13's undistilled checkpoint (529-568 s in PR
+    11's smokes), so that it adds no wall."""
     t0 = time.perf_counter()
     os.makedirs(VIEWER_DIR, exist_ok=True)
     jpeg_scene(card)
     # the bound-2 CLI beside --gui, which waits for phase 13's workspace
     b2 = Background(lambda: bound2_cli(dev, card,
                                        os.path.join(CLI_DIR, "scene")))
+    if prepare:
+        prepare_phase(dev, card)
     gui_cli(card, os.path.join(CLI_DIR, "ws_plain"), plain_iters)
     res = b2.result()
     print(f"scenes: {time.perf_counter() - t0:.1f} s ({card})")
@@ -3700,6 +4021,7 @@ def main() -> int:
     only_relight = sys.argv[1:] == ["--only", "relight"]
     only_viewer = sys.argv[1:] == ["--only", "viewer"]
     only_background = sys.argv[1:] == ["--only", "background"]
+    only_prepare = sys.argv[1:] == ["--only", "prepare"]
     as_worker = sys.argv[1:] == ["--worker", "relight"]
     as_viewer_worker = sys.argv[1:] == ["--worker", "viewer"]
 
@@ -3754,8 +4076,17 @@ def main() -> int:
         # phase 16 but its in-process viewer, for the whole smoke, which
         # reads this output (start_worker)
         print(VIEWER_WORKER_START)
-        print(json.dumps({"scenes": scenes_phase(dev, card,
-                                                 CLI_PLAIN_ITERS)}))
+        print(json.dumps({"scenes": scenes_phase(dev, card, CLI_PLAIN_ITERS,
+                                                 prepare=True)}))
+        return 0
+    if only_prepare:
+        # a shorter run while working on phase 18: the device, the build,
+        # phase 13's scene (written, no CLI started) and phase 18; no
+        # result lines
+        start_clis(relight=False, entry=False)
+        prepare_phase(dev, card)
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 18 "
+              f"only ({card})")
         return 0
     if only_viewer:
         # a shorter run while working on phase 16: the device, the build,

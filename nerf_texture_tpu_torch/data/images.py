@@ -3,14 +3,20 @@
 
 ``load_image`` is the counterpart of the JAX package's
 ``provider._load_image`` (imageio) and ``resize`` of its ``_resize``
-(``PIL.Image.resize(..., LANCZOS)``); tests hold both to those libraries
-bit for bit.  What imageio makes of a PNG is kept: 16-bit RGB(A) keeps
-the high byte of each sample, 16-bit gray is scaled to uint8 in f32 as
-the JAX loader does, 16-bit gray-alpha becomes RGBA, 8-bit gray-alpha
-stays two channels, and gray becomes three channels.  Palette, interlaced
-and sub-byte PNGs raise.  A JPEG is read by ``data.jpeg`` (baseline
-sequential files, bit for bit as PIL decodes them); any other format
-raises naming the file.
+(``PIL.Image.resize(..., LANCZOS)``); ``read_image`` returns what
+``imageio.v3.imread`` returns for a PNG or a JPEG.  Tests hold all three
+to those libraries bit for bit.  What imageio makes of a PNG is kept:
+16-bit RGB(A) keeps the high byte of each sample, 16-bit gray is scaled
+to uint8 in f32 as the JAX loader does, 16-bit gray-alpha becomes RGBA,
+8-bit gray-alpha stays two channels, and gray becomes three channels.
+A palette PNG (1, 2, 4 or 8 bits) is expanded through its ``PLTE`` to
+RGB, with any ``tRNS`` dropped and indices past the palette black;
+2- and 4-bit gray is scaled to 8 bits (x 85, x 17); 1-bit gray reads as
+booleans, which ``load_image`` refuses as the JAX loader does.  Adam7
+interlaced files are read for every colour type and depth.  A JPEG is
+read by ``data.jpeg`` (baseline, extended and progressive Huffman files,
+bit for bit as PIL decodes them); any other format raises naming the
+file.
 """
 
 from __future__ import annotations
@@ -25,8 +31,14 @@ import numpy as np
 from .jpeg import read_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# channels of each PNG colour type (palette, 3, is not read)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# channels of each PNG colour type (3: palette indices), and the bit
+# depths the PNG standard allows for it
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _png_chunks(data: bytes):
@@ -41,12 +53,13 @@ def _png_chunks(data: bytes):
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the PNG row filters (0 none, 1 sub, 2 up, 3 average, 4 paeth):
-    [h, stride] uint8."""
+    [h, stride] uint8.  Bytes past the image are ignored, as libpng (and
+    PIL) ignore them; too few raise."""
     rows = np.frombuffer(raw, np.uint8)
-    if rows.size != h * (stride + 1):
+    if rows.size < h * (stride + 1):
         raise ValueError(f"PNG data holds {rows.size} bytes, expected "
                          f"{h * (stride + 1)}")
-    rows = rows.reshape(h, stride + 1)
+    rows = rows[:h * (stride + 1)].reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -82,38 +95,96 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, c]: uint8 for depths
+    of 1-8 bits (sub-byte samples unpacked, most significant first, not
+    scaled), big-endian uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * c].reshape(h, w, c)
+    if depth == 16:
+        return rows[:, :2 * w * c].view(">u2").reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, :w * c * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, w * c, depth) * weights).sum(
+        -1, dtype=np.uint8).reshape(h, w, c)
+
+
+def _decode_pixels(raw: bytes, w: int, h: int, c: int, depth: int,
+                   interlace: int, path: str) -> np.ndarray:
+    """The zlib-inflated image data -> samples [h, w, c]: one filtered
+    image, or Adam7's seven passes, each filtered on its own with its own
+    row width (an empty pass has no bytes at all)."""
+    bpp = max(1, c * depth // 8)
+
+    def stride(width):
+        return (width * c * depth + 7) // 8
+
+    if not interlace:
+        return _samples(_unfilter(raw, h, stride(w), bpp), w, c, depth)
+    out = np.zeros((h, w, c), np.uint8 if depth <= 8 else ">u2")
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        n = ph * (stride(pw) + 1)
+        if pos + n > len(raw):
+            raise ValueError(f"{path}: interlaced PNG data holds "
+                             f"{len(raw)} bytes, its passes more")
+        rows = _unfilter(raw[pos:pos + n], ph, stride(pw), bpp)
+        out[y0::dy, x0::dx] = _samples(rows, pw, c, depth)
+        pos += n
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
     """A PNG file as imageio reads it: uint8 [H, W] (gray), [H, W, 2]
-    (gray-alpha), [H, W, 3] or [H, W, 4]; uint16 [H, W] for 16-bit gray.
-    8- and 16-bit samples, every row filter, no interlace, no palette."""
+    (gray-alpha), [H, W, 3] (RGB, palette) or [H, W, 4]; uint16 [H, W]
+    for 16-bit gray; bool [H, W] for 1-bit gray.  Every colour type and
+    bit depth of the PNG standard, every row filter, Adam7 interlace."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    ihdr, idat = None, []
+    ihdr, plte, idat = None, None, []
     for tag, body in _png_chunks(data):
         if tag == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = body
         elif tag == b"IDAT":
             idat.append(body)
     if ihdr is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if ctype == 3:
-        raise ValueError(f"{path}: palette PNGs are not read")
-    if ctype not in _CHANNELS or depth not in (8, 16):
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise ValueError(f"{path}: PNG colour type {ctype} at bit depth "
-                         f"{depth} is not read (8 or 16 bits of gray, "
-                         f"gray-alpha, RGB or RGBA)")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNGs are not read")
+                         f"{depth} is not a valid PNG")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG interlace method {interlace}")
+    if ctype == 3:
+        # imageio (through PIL) converts to the palette's mode, RGB: tRNS
+        # is dropped, and an index past the palette reads as black
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+        if len(plte) > 256 * 3:
+            raise ValueError(f"{path}: invalid palette size "
+                             f"({len(plte)} bytes)")
+        lut = np.zeros((256, 3), np.uint8)
+        n = len(plte) // 3
+        lut[:n] = np.frombuffer(plte[:3 * n], np.uint8).reshape(n, 3)
     c = _CHANNELS[ctype]
-    bpp = c * depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    if depth == 8:
-        img = rows.reshape(h, w, c)
-    else:
-        img = rows.view(">u2").reshape(h, w, c)
+    img = _decode_pixels(zlib.decompress(b"".join(idat)), w, h, c, depth,
+                         interlace, path)
+    if ctype == 3:
+        return lut[img[..., 0]]
+    if depth < 8:
+        # PIL's "1", "L;2" and "L;4" modes: booleans, or 8-bit gray
+        if depth == 1:
+            return img[..., 0] != 0
+        return img[..., 0] * np.uint8(255 // ((1 << depth) - 1))
+    if depth == 16:
         if ctype == 0:
             return img[..., 0].astype(np.uint16)
         # imageio (through PIL) keeps the high byte of 16-bit colour,
@@ -142,18 +213,30 @@ def write_png(path: str, img: np.ndarray):
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
-def load_image(path: str) -> np.ndarray:
-    """A scene image as the JAX loader has it: uint8 [H, W, C], C = 3 or 4
-    (2 for 8-bit gray-alpha); other integer types scaled to uint8 in f32,
-    gray made three channels.  PNG and baseline JPEG are read."""
+def read_image(path: str) -> np.ndarray:
+    """What ``imageio.v3.imread`` returns for a PNG (``read_png``) or a
+    JPEG (``data.jpeg.read_jpeg``): the format is told by the file's
+    first bytes."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head == PNG_SIGNATURE:
-        img = read_png(path)
-    elif head[:2] == b"\xff\xd8":
-        img = read_jpeg(path)
-    else:
-        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+        return read_png(path)
+    if head[:2] == b"\xff\xd8":
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def load_image(path: str) -> np.ndarray:
+    """A scene image as the JAX loader has it: uint8 [H, W, C], C = 3 or 4
+    (2 for 8-bit gray-alpha); other integer types scaled to uint8 in f32,
+    gray made three channels.  A 1-bit gray PNG raises: imageio reads it
+    as booleans, which the JAX loader cannot scale either."""
+    img = read_image(path)
+    if img.dtype == np.bool_:
+        raise ValueError(f"{path}: a 1-bit gray PNG reads as booleans "
+                         f"(as imageio reads it), which the scene loader "
+                         f"does not scale to uint8; the JAX loader raises "
+                         f"on it too")
     if img.dtype != np.uint8:
         img = (np.clip(img.astype(np.float32) / np.iinfo(img.dtype).max,
                        0, 1) * 255).astype(np.uint8)

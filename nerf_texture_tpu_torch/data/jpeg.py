@@ -1,15 +1,21 @@
 """Baseline JPEG without an image library: a decoder and an encoder on
 numpy that compute what libjpeg(-turbo) computes.
 
-``decode`` reads baseline and extended sequential Huffman files (SOF0 /
-SOF1, 8-bit samples): Huffman tables from the file, restart intervals,
-gray or YCbCr with any sampling factors (4:4:4, 4:2:2 and 4:2:0 take
-libjpeg's "fancy" triangle upsampling, as its decompressor does by
-default, other factors box replication).  The inverse DCT is libjpeg's
+``decode`` reads baseline, extended sequential and progressive Huffman
+files (SOF0 / SOF1 / SOF2, 8-bit samples): Huffman tables from the file,
+restart intervals, gray or YCbCr with any sampling factors (4:4:4, 4:2:2
+and 4:2:0 take libjpeg's "fancy" triangle upsampling, as its
+decompressor does by default, other factors box replication).  A
+progressive file's scans (jdphuff.c: DC first and refinement scans,
+interleaved or not; AC first scans over a spectral band with end-of-band
+runs; AC refinement scans with their correction bits) build the same
+coefficients as the sequential decoder.  The inverse DCT is libjpeg's
 ISLOW integer transform (jidctint.c) and the colour conversion its
 fixed-point tables (jdcolor.c), so a file decodes to the bytes PIL (which
-bundles libjpeg-turbo) returns.  Progressive, lossless and
-arithmetic-coded files raise a ``ValueError``.
+bundles libjpeg-turbo) returns.  Lossless, arithmetic-coded and
+hierarchical files, 12-bit samples, and a progressive file that leaves
+its low coefficients unrefined (which libjpeg would block-smooth) raise a
+``ValueError``.
 
 ``encode`` writes what ``PIL.Image.save(format="JPEG", quality=q)``
 writes for an RGB image: the JFIF header, libjpeg's standard quantisation
@@ -20,7 +26,7 @@ blocks
 (jcprepct.c, jccoefct.c), the ISLOW forward DCT (jfdctint.c), rounding
 quantisation, and the standard Huffman tables of the JPEG standard's
 Annex K.  Every stage is vectorised over all blocks and symbols; the
-only Python loop of the codec is the decoder's symbol loop (a Huffman
+only Python loops of the codec are the decoder's symbol loops (a Huffman
 stream is sequential).
 """
 
@@ -360,14 +366,15 @@ def _segments(data: bytes, start: int):
 
 
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A baseline (sequential Huffman) JPEG -> uint8 [H, W] (gray) or
-    [H, W, 3] (RGB), as libjpeg decodes it with its defaults (ISLOW,
-    fancy upsampling).  ``name`` names the file in errors."""
+    """A baseline, extended sequential or progressive Huffman JPEG ->
+    uint8 [H, W] (gray) or [H, W, 3] (RGB), as libjpeg decodes it with
+    its defaults (ISLOW, fancy upsampling).  ``name`` names the file in
+    errors."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     qts, huff, comps, frame = {}, {}, [], None
     restart, adobe, pos = 0, None, 2
-    coef = None
+    coef, progressive = None, False
     while pos < len(data):
         if data[pos] != 0xFF:
             raise ValueError(f"{name}: corrupt JPEG (no marker at {pos})")
@@ -380,10 +387,11 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
         seg_len = int.from_bytes(data[pos + 2:pos + 4], "big")
         seg = data[pos + 4:pos + 2 + seg_len]
         pos += 2 + seg_len
-        if marker in (0xC0, 0xC1):                # SOF0 / SOF1
+        if marker in (0xC0, 0xC1, 0xC2):          # SOF0 / SOF1 / SOF2
             if seg[0] != 8:
                 raise ValueError(f"{name}: {seg[0]}-bit JPEG samples are "
-                                 f"not read (8-bit only)")
+                                 f"not read (8-bit only; ROADMAP Queue 1, "
+                                 f"item 11.7)")
             H = int.from_bytes(seg[1:3], "big")
             W = int.from_bytes(seg[3:5], "big")
             nc = seg[5]
@@ -393,13 +401,20 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
                               "tq": tq})
             frame = (H, W)
             coef = _alloc_coefficients(comps, H, W)
-        elif 0xC2 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            kind = {0xC2: "progressive", 0xC3: "lossless"}.get(
-                marker, "arithmetic-coded or hierarchical")
+            progressive = marker == 0xC2
+            if progressive:
+                # the coefficients as a list, refined scan by scan, and
+                # per component the Al each coefficient was last read at
+                # (-1: not yet), as libjpeg's coef_bits
+                coef["list"] = [0] * coef["flat"].size
+                coef["bits"] = [[-1] * 64 for _ in comps]
+        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            kind = "lossless" if marker in (0xC3, 0xC7, 0xCB, 0xCF) else \
+                "arithmetic-coded" if marker >= 0xC9 else "hierarchical"
             raise ValueError(
                 f"{name}: {kind} JPEG (SOF{marker - 0xC0}) is not read; "
-                f"only baseline sequential JPEG is (ROADMAP Queue 1, item "
-                f"11.7)")
+                f"only baseline, extended sequential and progressive "
+                f"Huffman JPEG is (ROADMAP Queue 1, item 11.7)")
         elif marker == 0xCC:
             raise ValueError(f"{name}: arithmetic-coded JPEG is not read "
                              f"(ROADMAP Queue 1, item 11.7)")
@@ -435,12 +450,22 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
             for k in range(ns):
                 cid, t = seg[1 + 2 * k], seg[2 + 2 * k]
                 ci = next(i for i, c in enumerate(comps) if c["id"] == cid)
-                scan.append((ci, huff[("dc", t >> 4)], huff[("ac", t & 15)]))
+                scan.append((ci, huff.get(("dc", t >> 4)),
+                             huff.get(("ac", t & 15))))
+            ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
+            ah, al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
             pieces, pos = _segments(data, pos)
-            _decode_scan(pieces, scan, comps, coef, frame, restart, name)
+            if progressive:
+                _decode_progressive_scan(pieces, scan, comps, coef, restart,
+                                         (ss, se, ah, al), name)
+            else:
+                _decode_scan(pieces, scan, comps, coef, restart, name)
         # APPn, COM and anything else: skipped
     if frame is None:
         raise ValueError(f"{name}: no frame header")
+    if progressive:
+        _check_refined(coef["bits"], name)
+        coef["flat"] = np.asarray(coef.pop("list"), np.int64)
     return _reconstruct(coef, comps, qts, frame, adobe, name)
 
 
@@ -461,43 +486,234 @@ def _alloc_coefficients(comps, H, W):
             "max": (vmax, hmax)}
 
 
-def _decode_scan(pieces, scan, comps, coef, frame, restart, name):
-    """The blocks of one scan in stream order, cut into restart
-    intervals, decoded into ``coef``."""
+def _scan_blocks(scan, comps, coef):
+    """The blocks of one scan in stream order: (coefficient base of each,
+    its component's slot in the scan, blocks per MCU).  A scan of one
+    component covers that component's own blocks, one an MCU; an
+    interleaved scan walks the MCUs, padding blocks included."""
     if len(scan) == 1:                          # non-interleaved
         c = comps[scan[0][0]]
         by, bx = np.meshgrid(np.arange(-(-c["dh"] // 8)),
                              np.arange(-(-c["dw"] // 8)), indexing="ij")
         bases = c["off"] + (by * c["nbx"] + bx).reshape(-1) * 64
-        slots = np.zeros(bases.size, np.int64)
-        per_mcu = 1
-    else:
-        mcuy, mcux = coef["mcu"]
-        parts, slot_parts = [], []
-        for s, (ci, _, _) in enumerate(scan):
-            c = comps[ci]
-            my, mx, v, h = np.meshgrid(np.arange(mcuy), np.arange(mcux),
-                                       np.arange(c["v"]), np.arange(c["h"]),
-                                       indexing="ij")
-            b = c["off"] + ((my * c["v"] + v) * c["nbx"]
-                            + mx * c["h"] + h) * 64
-            parts.append(b.reshape(mcuy * mcux, -1))
-            slot_parts.append(np.full(parts[-1].shape, s))
-        bases = np.concatenate(parts, 1).reshape(-1)
-        slots = np.concatenate(slot_parts, 1).reshape(-1)
-        per_mcu = sum(comps[ci]["v"] * comps[ci]["h"] for ci, _, _ in scan)
-    tables = [(dcl, acl) for _, dcl, acl in scan]
-    blocks = [(b, s, *tables[s]) for b, s in zip(bases.tolist(),
-                                                  slots.tolist())]
-    step = restart * per_mcu if restart else len(blocks)
-    idx, val = [], []
-    for k, start in enumerate(range(0, len(blocks), step)):
+        return bases.tolist(), [0] * bases.size, 1
+    mcuy, mcux = coef["mcu"]
+    parts, slot_parts = [], []
+    for s, (ci, _, _) in enumerate(scan):
+        c = comps[ci]
+        my, mx, v, h = np.meshgrid(np.arange(mcuy), np.arange(mcux),
+                                   np.arange(c["v"]), np.arange(c["h"]),
+                                   indexing="ij")
+        b = c["off"] + ((my * c["v"] + v) * c["nbx"] + mx * c["h"] + h) * 64
+        parts.append(b.reshape(mcuy * mcux, -1))
+        slot_parts.append(np.full(parts[-1].shape, s))
+    bases = np.concatenate(parts, 1).reshape(-1)
+    slots = np.concatenate(slot_parts, 1).reshape(-1)
+    per_mcu = sum(comps[ci]["v"] * comps[ci]["h"] for ci, _, _ in scan)
+    return bases.tolist(), slots.tolist(), per_mcu
+
+
+def _intervals(pieces, n_blocks: int, restart: int, per_mcu: int, name):
+    """(restart interval's window list, its first block, its end block)
+    for the blocks of one scan."""
+    step = restart * per_mcu if restart else n_blocks
+    for k, start in enumerate(range(0, n_blocks, step)):
         if k >= len(pieces):
             raise ValueError(f"{name}: corrupt JPEG (missing restart "
                              f"interval {k})")
-        _decode_interval(_windows(pieces[k]), blocks[start:start + step],
-                         [0] * len(scan), idx, val, name)
+        yield _windows(pieces[k]), start, min(start + step, n_blocks)
+
+
+def _decode_scan(pieces, scan, comps, coef, restart, name):
+    """The blocks of one sequential scan in stream order, cut into restart
+    intervals, decoded into ``coef``."""
+    for _, dcl, acl in scan:
+        if dcl is None or acl is None:
+            raise ValueError(f"{name}: a scan uses an undefined Huffman "
+                             f"table")
+    bases, slots, per_mcu = _scan_blocks(scan, comps, coef)
+    tables = [(dcl, acl) for _, dcl, acl in scan]
+    blocks = [(b, s, *tables[s]) for b, s in zip(bases, slots)]
+    idx, val = [], []
+    for W, a, b in _intervals(pieces, len(blocks), restart, per_mcu, name):
+        _decode_interval(W, blocks[a:b], [0] * len(scan), idx, val, name)
     coef["flat"][np.asarray(idx, np.int64)] = np.asarray(val, np.int64)
+
+
+# ---------------------------------------------------------------------------
+# progressive scans (jdphuff.c)
+# ---------------------------------------------------------------------------
+
+def _decode_progressive_scan(pieces, scan, comps, coef, restart, band, name):
+    """One scan of a progressive file: the band ``(Ss, Se, Ah, Al)`` of
+    its components' coefficients read into ``coef["list"]``, restart
+    interval by restart interval (each starts its DC predictions and its
+    end-of-band run at 0)."""
+    ss, se, ah, al = band
+    # the scan parameters libjpeg refuses (jdphuff.c start_pass_phuff_
+    # decoder); a refinement out of sequence is only a warning there
+    if (ss == 0 and se != 0 or ss > se or se > 63
+            or (ss and len(scan) != 1) or (ah and al != ah - 1) or al > 13):
+        raise ValueError(f"{name}: invalid progressive scan (Ss {ss}, Se "
+                         f"{se}, Ah {ah}, Al {al}, {len(scan)} components)")
+    for ci, dcl, acl in scan:
+        coef["bits"][ci][ss:se + 1] = [al] * (se + 1 - ss)
+        # every scan but a DC refinement reads Huffman symbols
+        if (ss or not ah) and (acl if ss else dcl) is None:
+            raise ValueError(f"{name}: a scan uses an undefined Huffman "
+                             f"table")
+    bases, slots, per_mcu = _scan_blocks(scan, comps, coef)
+    C = coef["list"]
+    for W, a, b in _intervals(pieces, len(bases), restart, per_mcu, name):
+        if ss == 0 and ah == 0:
+            luts = [dcl for _, dcl, _ in scan]
+            _dc_first(W, bases[a:b], slots[a:b], luts, C, al, name)
+        elif ss == 0:
+            _dc_refine(W, bases[a:b], C, al)
+        elif ah == 0:
+            _ac_first(W, bases[a:b], scan[0][2], C, ss, se, al, name)
+        else:
+            _ac_refine(W, bases[a:b], scan[0][2], C, ss, se, al, name)
+
+
+def _dc_first(W, bases, slots, luts, C, al, name):
+    """DC first scan: each block's DC difference, added to its
+    component's prediction, shifted up by Al."""
+    preds = [0] * len(luts)
+    pos = 0
+    for base, s in zip(bases, slots):
+        e = luts[s][W[pos]]
+        if not e:
+            raise ValueError(f"{name}: corrupt JPEG data (bad DC code)")
+        pos += e & 31
+        n = e >> 5
+        if n:
+            v = W[pos] >> (16 - n)
+            pos += n
+            if v < (1 << (n - 1)):
+                v -= (1 << n) - 1
+            preds[s] += v
+        C[base] = preds[s] << al
+
+
+def _dc_refine(W, bases, C, al):
+    """DC refinement scan: one raw bit a block, or'ed in at Al."""
+    p1 = 1 << al
+    for j, base in enumerate(bases):
+        if W[j] >> 15:
+            C[base] |= p1
+
+
+def _ac_first(W, bases, lut, C, ss, se, al, name):
+    """AC first scan of one component over the band ``ss..se``: run /
+    size symbols, and end-of-band runs that skip whole blocks."""
+    nat = _NATURAL_LIST
+    pos = eobrun = 0
+    for base in bases:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            e = lut[W[pos]]
+            if not e:
+                raise ValueError(f"{name}: corrupt JPEG data (bad AC code)")
+            pos += e & 31
+            rs = e >> 5
+            r, n = rs >> 4, rs & 15
+            if n:
+                k += r
+                if k > se:
+                    raise ValueError(f"{name}: corrupt JPEG data (AC "
+                                     f"index)")
+                v = W[pos] >> (16 - n)
+                pos += n
+                if v < (1 << (n - 1)):
+                    v -= (1 << n) - 1
+                C[base + nat[k]] = v << al
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += W[pos] >> (16 - r)
+                    pos += r
+                eobrun -= 1
+                break
+
+
+def _ac_refine(W, bases, lut, C, ss, se, al, name):
+    """AC refinement scan of one component over ``ss..se``: a correction
+    bit for every coefficient already nonzero that the walk passes, and
+    new coefficients of +-2^Al placed after runs of still-zero ones."""
+    nat = _NATURAL_LIST
+    p1, m1 = 1 << al, -1 << al
+    pos = eobrun = 0
+    for base in bases:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = lut[W[pos]]
+                if not e:
+                    raise ValueError(f"{name}: corrupt JPEG data (bad AC "
+                                     f"code)")
+                pos += e & 31
+                rs = e >> 5
+                r, n = rs >> 4, rs & 15
+                if n:
+                    n = p1 if W[pos] >> 15 else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += W[pos] >> (16 - r)
+                        pos += r
+                    break
+                # pass r still-zero coefficients (refining the nonzero
+                # ones on the way) and stop at the next zero one
+                while k <= se:
+                    i = base + nat[k]
+                    c = C[i]
+                    if c:
+                        if W[pos] >> 15 and not c & p1:
+                            C[i] = c + p1 if c >= 0 else c + m1
+                        pos += 1
+                    elif r:
+                        r -= 1
+                    else:
+                        break
+                    k += 1
+                if n:
+                    if k > se:
+                        raise ValueError(f"{name}: corrupt JPEG data (AC "
+                                         f"index)")
+                    C[base + nat[k]] = n
+                k += 1
+        if eobrun:
+            # the rest of the band: correction bits only
+            while k <= se:
+                i = base + nat[k]
+                c = C[i]
+                if c:
+                    if W[pos] >> 15 and not c & p1:
+                        C[i] = c + p1 if c >= 0 else c + m1
+                    pos += 1
+                k += 1
+            eobrun -= 1
+
+
+def _check_refined(bits, name):
+    """libjpeg block-smooths a progressive image whose DC or first nine AC
+    coefficients (zigzag order) are not read to full precision (jdcoefct.c
+    ``smoothing_ok``); that estimate is not ported, so such a file
+    raises."""
+    for ci, b in enumerate(bits):
+        if any(x != 0 for x in b[:10]):
+            raise ValueError(
+                f"{name}: progressive JPEG leaves component {ci}'s low "
+                f"coefficients unrefined (Al {b[:10]}), which libjpeg "
+                f"block-smooths; not read (ROADMAP Queue 1, item 11.7)")
 
 
 def _reconstruct(coef, comps, qts, frame, adobe, name):

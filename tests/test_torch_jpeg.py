@@ -4,7 +4,9 @@ and 4:2:0, qualities 50, 85 and 95, sizes that are not a multiple of 16,
 restart intervals and ``optimize=True`` Huffman tables -- decode to PIL's
 pixels bit for bit; the port's encoding of an RGB image (4:2:0, PIL's
 default, and 4:4:4) is the file PIL writes, byte for byte, so PIL decodes
-it to what it decodes its own file to; progressive files raise.
+it to what it decodes its own file to; lossless, arithmetic-coded,
+hierarchical and 12-bit files raise (progressive files:
+``test_torch_image_formats.py``).
 """
 
 import io
@@ -87,11 +89,28 @@ def test_encode_default_is_pils_and_round_trips(tmp_path):
                                   np.asarray(Image.open(path)))
 
 
+def _with_marker(data: bytes, sof: int, precision: int = 8) -> bytes:
+    """A baseline file with its SOF0 marker replaced by ``sof`` and its
+    sample precision by ``precision``."""
+    k = data.index(b"\xff\xc0")
+    return data[:k + 1] + bytes([sof]) + data[k + 2:k + 4] + \
+        bytes([precision]) + data[k + 5:]
+
+
 def test_unsupported_files_raise():
+    """What still raises: lossless (SOF3), arithmetic-coded (SOF9) and
+    hierarchical (SOF5) frames, 12-bit samples (also when progressive),
+    and a file that is not a JPEG; the encoder's refusals."""
     img = _image(24, 24, 3, seed=5)
-    with pytest.raises(ValueError, match="prog.jpg.*progressive.*11.7"):
-        jpeg.decode(_pil_bytes(img, quality=85, progressive=True),
-                    name="prog.jpg")
+    base = _pil_bytes(img, quality=85)
+    for sof, kind in ((0xC3, "lossless"), (0xC9, "arithmetic-coded"),
+                      (0xCB, "lossless"), (0xC5, "hierarchical")):
+        with pytest.raises(ValueError,
+                           match=f"x.jpg: {kind} JPEG.*11.7"):
+            jpeg.decode(_with_marker(base, sof), name="x.jpg")
+    for sof in (0xC0, 0xC1, 0xC2):
+        with pytest.raises(ValueError, match="12-bit JPEG samples.*11.7"):
+            jpeg.decode(_with_marker(base, sof, precision=12))
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode(b"\x89PNG....")
     for bad in (np.zeros((8, 8, 4), np.uint8), np.zeros((8, 8), np.uint8),

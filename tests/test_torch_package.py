@@ -149,7 +149,7 @@ _IMPORT_VIEWER = """
 import sys
 import numpy as np
 import chip_smoke, main_nerf_torch, main_torch
-from nerf_texture_tpu_torch.data import images, jpeg, provider
+from nerf_texture_tpu_torch.data import images, jpeg, prepare, provider
 from nerf_texture_tpu_torch.viewer import ViewerApp, serve
 img = np.arange(16 * 24 * 3, dtype=np.uint8).reshape(16, 24, 3)
 assert jpeg.decode(jpeg.encode(img, quality=90)).shape == (16, 24, 3)
@@ -171,6 +171,53 @@ def test_viewer_codec_and_smoke_import_no_jax_or_image_library():
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "7860", res.stdout
+
+
+_CAPTURE_BLOCKED = """
+import importlib.abc, json, os, sys
+BLOCKED = ("jax", "jaxlib", "nerf_texture_tpu", "PIL", "imageio", "cv2")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+from nerf_texture_tpu_torch.data import images, jpeg, prepare, provider
+fx = os.path.join("tests", "fixtures", "formats")
+with open(os.path.join(fx, "manifest.json")) as f:
+    manifest = json.load(f)
+n = 0
+for name, entry in sorted(manifest.items()):
+    img = images.read_image(os.path.join(fx, name))
+    want = entry["imread"]
+    if "npy" in want:
+        ref = np.load(os.path.join(fx, want["npy"]))
+        assert np.array_equal(img, ref), name
+    if img.dtype != bool and (img.ndim == 2 or img.shape[-1] != 2):
+        assert prepare.laplacian_variance(img) >= 0.0, name
+    n += 1
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not bad, bad
+print(n, prepare.prepare_scene.__module__)
+"""
+
+
+def test_capture_path_runs_without_jax_or_image_libraries():
+    """The capture-to-scene modules (``data.prepare``, ``data.images``,
+    ``data.jpeg``, ``data.provider``) import and decode every committed
+    format fixture with jax, the JAX package, PIL, imageio and OpenCV
+    blocked, as on the card's machine, which has none of them."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _CAPTURE_BLOCKED], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, mod = res.stdout.split()
+    assert int(n) >= 27 and mod == "nerf_texture_tpu_torch.data.prepare"
 
 
 @pytest.mark.parametrize("ours,theirs", [

@@ -143,7 +143,7 @@ def test_pose_helpers_match_jax():
 # ---------------------------------------------------------------------------
 
 def _png(path, rows: np.ndarray, depth: int, ctype: int, filters=None,
-         palette=False, interlace=0):
+         palette=False, interlace=0, palette_bytes=bytes(range(48))):
     """A hand-built PNG of samples rows [H, W, C] (uint8 or uint16), each
     row written with its filter type (default 0)."""
     h, w = rows.shape[:2]
@@ -181,7 +181,7 @@ def _png(path, rows: np.ndarray, depth: int, ctype: int, filters=None,
     body = chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
                                       interlace))
     if palette:
-        body += chunk(b"PLTE", bytes(range(48)))
+        body += chunk(b"PLTE", palette_bytes)
     with open(path, "wb") as f:
         f.write(images.PNG_SIGNATURE + body
                 + chunk(b"IDAT", zlib.compress(b"".join(out)))
@@ -236,33 +236,41 @@ def test_png_written_by_pil_matches_imageio(tmp_path, mode):
 
 
 def test_png_kinds_that_raise(tmp_path):
+    """What still raises: a 1-bit gray PNG (imageio reads booleans, which
+    the JAX loader cannot scale), and a palette PNG without its PLTE
+    chunk or with more than 256 entries (imageio raises on both)."""
+    bits = np.random.default_rng(0).integers(0, 2, (4, 8, 1))
+    _png(str(tmp_path / "b1.png"), bits, 1, 0)
+    with pytest.raises(ValueError):
+        jprov._load_image(str(tmp_path / "b1.png"))
+    with pytest.raises(ValueError, match="1-bit gray PNG"):
+        images.load_image(str(tmp_path / "b1.png"))
     rows = np.zeros((4, 4, 1), np.int64)
-    _png(str(tmp_path / "pal.png"), rows, 8, 3, palette=True)
-    with pytest.raises(ValueError, match="palette"):
+    _png(str(tmp_path / "pal.png"), rows, 8, 3)
+    with pytest.raises(Exception):
+        iio.imread(str(tmp_path / "pal.png"))
+    with pytest.raises(ValueError, match="without a PLTE"):
         images.read_png(str(tmp_path / "pal.png"))
-    _png(str(tmp_path / "il.png"), np.zeros((4, 4, 3), np.int64), 8, 2,
-         interlace=1)
-    with pytest.raises(ValueError, match="interlaced"):
-        images.read_png(str(tmp_path / "il.png"))
-    _png(str(tmp_path / "b4.png"), rows, 4, 0)
-    with pytest.raises(ValueError, match="bit depth 4"):
-        images.read_png(str(tmp_path / "b4.png"))
+    _png(str(tmp_path / "big.png"), rows, 8, 3, palette=True,
+         palette_bytes=bytes(257 * 3))
+    with pytest.raises(ValueError, match="palette size"):
+        iio.imread(str(tmp_path / "big.png"))
+    with pytest.raises(ValueError, match="palette size"):
+        images.read_png(str(tmp_path / "big.png"))
 
 
 def test_jpeg_needs_pil(tmp_path, monkeypatch):
-    """A JPEG loads without PIL (the port's own decoder), equal to the
-    JAX loader's imageio read; a progressive one raises naming the file
-    and the ROADMAP item."""
+    """A JPEG loads without PIL (the port's own decoder), baseline and
+    progressive, each equal to the JAX loader's imageio read."""
     arr = np.random.default_rng(0).integers(0, 256, (16, 20, 3), np.uint8)
     path = str(tmp_path / "x.jpg")
     Image.fromarray(arr).save(path, quality=90)
     prog = str(tmp_path / "p.jpg")
     Image.fromarray(arr).save(prog, quality=90, progressive=True)
-    want = jprov._load_image(path)
+    want, want_prog = jprov._load_image(path), jprov._load_image(prog)
     monkeypatch.setitem(sys.modules, "PIL", None)
     np.testing.assert_array_equal(images.load_image(path), want)
-    with pytest.raises(ValueError, match="p.jpg.*progressive.*11.7"):
-        images.load_image(prog)
+    np.testing.assert_array_equal(images.load_image(prog), want_prog)
 
 
 @pytest.mark.parametrize("downscale", [1, 2])
