@@ -225,6 +225,35 @@ exit and no result line, and stops every process it started:
               a Trainer at the bench NGP width takes 100 steps on it, the
               loss finite and falling; ``laplacian_variance`` seconds a
               frame and the phase's wall.
+ 19. parallel: ``parallel/`` over torch.distributed, after phase 18 in
+              the viewer worker: ranks are ``chip_smoke.py --rank <job>``
+              processes with torchrun's environment that call
+              ``initialize_multihost``.  On 2 ranks sharing the card over
+              gloo: the NGP's ``dp_train_step`` at bench width (phase 7's
+              config and scene, 4096 rays a step split over the ranks) 50
+              steps and the curved ``curved_train_step(mesh=)`` at phase
+              10's width 32 steps (2 refreshes, the grid broadcast after
+              each) in lockstep with single-rank runs of the same draws
+              (the loss within 1% at every step; the curved one within
+              1e-2 over the first refresh cycle, 0.1 at every step, 1e-2
+              in the mean; training-view PSNR within 0.3 dB); 800x800
+              band frames (``parallel.eval.render_image_sharded``) of the
+              trained states through proxy_select_cdf and proxy_select,
+              each band's kernel frame bit for bit with its
+              plain-selection frame, and within the FRAME_* bounds of the
+              single-rank frame (the NGP's at block 8, the curved one's at
+              the baked arm's block 8; its live block 4 reported); the
+              chunk fallback at 2 cascades against the same split over
+              one rank; one NGP and one curved step at model 2.  On 4
+              ranks: one step of each at data 2 x model 2 (loss within
+              1e-3 of the single-rank step) and the band frames at data
+              4.  NCCL at a world of one: the NGP step against two runs
+              of the single-rank step.  Every rank's params, Adam moments,
+              EMA and grid bit for bit (checksums reduced by MAX and MIN).
+              With 2 or more cards, the data-parallel run over NCCL on up
+              to 4 cards.  Logs in build/parallel/; the times
+              of ranks sharing one card are gloo traffic through the
+              host, not a multi-GPU speed.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -238,8 +267,9 @@ imports, and the CLIs on a scene and template written for them), ``--only
 viewer`` phases 1, 2 and 16 in this process (the viewer on a curved field
 trained 48 steps, --gui on a 50-step undistilled run), ``--only
 background`` phases 1, 2, 7, 8 and 17, ``--only prepare`` phases 1, 2,
-13's scene writer and 18 (its files to build/prepare/); none prints
-result lines.
+13's scene writer and 18 (its files to build/prepare/), ``--only
+parallel`` phases 1, 2 and 19 (its files to build/parallel/); none
+prints result lines.
 """
 
 from __future__ import annotations
@@ -3435,19 +3465,25 @@ def prepare_phase(dev, card: str) -> None:
 def scenes_phase(dev, card: str, plain_iters: int,
                  prepare: bool = False) -> dict:
     """Phase 16 but the viewer in the smoke's process: the JPEG scene, the
-    bound-2 CLI and the --gui CLI; with ``prepare`` phase 18 too, while
-    --gui waits for phase 13's undistilled checkpoint (529-568 s in PR
-    11's smokes), so that it adds no wall."""
+    bound-2 CLI and the --gui CLI; with ``prepare`` phases 18 and 19 too,
+    while --gui waits for phase 13's undistilled checkpoint (529-568 s in
+    earlier smokes), so that they add no wall (phase 19's selection
+    launches by path under the result's "parallel")."""
     t0 = time.perf_counter()
     os.makedirs(VIEWER_DIR, exist_ok=True)
     jpeg_scene(card)
     # the bound-2 CLI beside --gui, which waits for phase 13's workspace
     b2 = Background(lambda: bound2_cli(dev, card,
                                        os.path.join(CLI_DIR, "scene")))
+    par = {}
     if prepare:
         prepare_phase(dev, card)
+        t1 = time.perf_counter()
+        par = parallel_phase(dev, card)
+        print(f"parallel: phase 19 in the viewer worker "
+              f"{time.perf_counter() - t1:.1f} s ({card})")
     gui_cli(card, os.path.join(CLI_DIR, "ws_plain"), plain_iters)
-    res = b2.result()
+    res = dict(b2.result(), parallel=par)
     print(f"scenes: {time.perf_counter() - t0:.1f} s ({card})")
     return res
 
@@ -3508,7 +3544,7 @@ def scenes_from_worker(worker: Background, ngp_psnr: float,
           f"{B2_SLACK} dB) ({card})")
     check(res["psnr"] >= ngp_psnr - B2_SLACK, f"bound-2 PSNR {res['psnr']} "
           f"dB against the NGP CLI's {ngp_psnr} dB")
-    return res["launches"]["bound2_cli_eval"]
+    return res["launches"]["bound2_cli_eval"], res["parallel"]
 
 
 def tree_to(tree, device):
@@ -3980,7 +4016,741 @@ def ngp_train_render(dev, card: str, mcfg, rcfg, lap):
                          "novel_topk": psnr_novel["topk"]}
 
 
+# -- phase 19: multi-rank training and band-sharded frames ------------------
+# Ranks are processes started with torchrun's environment (MASTER_ADDR,
+# MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE) that call
+# parallel.initialize_multihost.  On one card the ranks share cuda:0 over
+# gloo (NCCL refuses two ranks on one card): the numbers of such a run are
+# gloo traffic through the host, not a multi-GPU speed.  PAR_TIMEOUT
+# bounds a rank group and each collective.
+PAR_NGP_STEPS, PAR_CURVED_STEPS = 50, 32
+PAR_TIMEOUT = 600.0
+PAR_DIR = os.path.join("build", "parallel")
+PAR_RANK_START = "parallel rank: start"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+# card memory a rank group needs free before it starts, GiB: its ranks'
+# peaks alone on an H100 (6.3 + 7.0, 5.8 + 3 x 4.2, 7.0) and a
+# margin for the caching allocators; the smoke's other processes share
+# the card, so a group waits up to PAR_MEMORY_WAIT s for the room
+PAR_MEMORY_GIB = {"dp": 18.0, "tp4": 24.0, "nccl1": 9.0}
+PAR_MEMORY_WAIT = 300.0
+# the ranks' host priority (the viewer worker runs at 0)
+PAR_NICE = 15
+
+
+def _wait_for_memory(job: str, card: str):
+    """Wait (up to PAR_MEMORY_WAIT s) until the card has the room the
+    group needs; prints the free memory found and the wait."""
+    need = PAR_MEMORY_GIB[job] * 2 ** 30
+    t0 = time.perf_counter()
+    free = torch.cuda.mem_get_info()[0]
+    while free < need and time.perf_counter() - t0 < PAR_MEMORY_WAIT:
+        time.sleep(2.0)
+        free = torch.cuda.mem_get_info()[0]
+    print(f"parallel: {job}: {free / 2 ** 30:.1f} GiB free on the card "
+          f"after {time.perf_counter() - t0:.1f} s (wants "
+          f"{PAR_MEMORY_GIB[job]:.0f}) ({card})")
+
+
+def rank_group(job: str, world: int, backend: str,
+               card: str = "") -> list[dict]:
+    """``chip_smoke.py --rank <job>`` on ``world`` ranks with torchrun's
+    environment and ``backend``, once the card has room for them; their
+    outputs in build/parallel/<job>_<world>_<rank>.log.  Fails
+    unless every rank exits 0 within PAR_TIMEOUT (ranks still running
+    then are killed).  Returns each rank's result, in rank order."""
+    os.makedirs(PAR_DIR, exist_ok=True)
+    _wait_for_memory(job, card)
+    port, procs, logs = _free_port(), [], []
+    tag = f"{job}_{world}"
+    for r in range(world):
+        env = {**os.environ, "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
+               "RANK": str(r), "LOCAL_RANK": str(r),
+               "LOCAL_WORLD_SIZE": str(world), "SMOKE_BACKEND": backend,
+               "PYTHONUNBUFFERED": "1",
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        logs.append(os.path.join(PAR_DIR, f"{tag}_{r}.log"))
+        # below the main process's host work (the smoke's wall), which
+        # the ranks' gloo traffic through the host would otherwise slow
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", job],
+                stdout=log, stderr=subprocess.STDOUT, env=env,
+                preexec_fn=lambda: os.nice(PAR_NICE)))
+        CHILDREN.append(procs[-1])
+    end = time.monotonic() + PAR_TIMEOUT
+    for p in procs:
+        try:
+            p.wait(max(1.0, end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+    hung = [r for r, p in enumerate(procs) if p.poll() is None]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    tails = "\n".join(f"--- rank {r}:\n" + open(lg).read()[-3000:]
+                      for r, lg in enumerate(logs))
+    check(not hung, f"parallel {tag}: ranks {hung} still running after "
+          f"{PAR_TIMEOUT} s (killed)\n{tails}")
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    check(not bad, f"parallel {tag}: ranks {bad} failed\n{tails}")
+    for r, lg in enumerate(logs):
+        lines = open(lg).read().splitlines()
+        for ln in lines[lines.index(PAR_RANK_START) + 1:]:
+            if ln.startswith("parallel"):
+                print(ln)
+    return [json.load(open(os.path.join(PAR_DIR, f"{tag}_{r}.json")))
+            for r in range(world)]
+
+
+def _ngp_rays(tr, batch):
+    """The rays and targets of an NGP batch (``train_loss``'s)."""
+    from nerf_texture_tpu_torch.data.rays import get_rays
+
+    H, W = tr.H, tr.W
+    rays = get_rays(tr.poses[batch.frame], tr.intrinsics, H, W, batch.inds)
+    px = tr.images[batch.frame].reshape(H * W, -1)[batch.inds].to(
+        torch.float32) / 255.0
+    if px.shape[-1] == 4:
+        return rays, px[:, :3] * px[:, 3:] + batch.bg * (1 - px[:, 3:]), \
+            batch.bg
+    return rays, px[:, :3], torch.ones((3,), device=px.device)
+
+
+def ngp_loop(tr, steps: int, mesh=None) -> tuple:
+    """``Trainer.train``'s schedule (grid refreshes, draws) for ``steps``
+    steps: ``train_step`` without ``mesh``, else ``dp_train_step`` with the
+    grid broadcast after each refresh.  Returns (losses, ms a step)."""
+    from nerf_texture_tpu_torch.ops import occupancy as occ_mod
+    from nerf_texture_tpu_torch.parallel import dp_train_step
+    from nerf_texture_tpu_torch.parallel.train import sync_grid
+    from nerf_texture_tpu_torch.train.trainer import (grid_step, sample_batch,
+                                                      train_step)
+
+    tcfg, rcfg = tr.tcfg, tr.rcfg
+    if not tr._marked:
+        tr.mark_untrained()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(tr.state.step, tr.state.step + steps):
+        if step % tcfg.grid_update_interval == 0:
+            full = step // tcfg.grid_update_interval < tcfg.grid_full_updates
+            draws = occ_mod.grid_draws(tr.generator, grid_size=rcfg.grid_size,
+                                       cascades=rcfg.cascades,
+                                       bound=rcfg.bound, full=full)
+            grid_step(tr.state, draws, mcfg=tr.mcfg, rcfg=rcfg, full=full,
+                      decay=tcfg.grid_decay)
+            if mesh is not None:
+                sync_grid(tr.state, mesh)
+        batch = sample_batch(tr.generator, num_frames=tr.dataset.num_frames,
+                             H=tr.H, W=tr.W, tcfg=tcfg)
+        if mesh is None:
+            losses.append(train_step(
+                tr.state, batch, tr.poses, tr.images, tr.intrinsics,
+                mcfg=tr.mcfg, rcfg=rcfg, tcfg=tcfg, H=tr.H, W=tr.W)["loss"])
+        else:
+            rays, gt, bg = _ngp_rays(tr, batch)
+            losses.append(dp_train_step(
+                tr.state, rays["rays_o"], rays["rays_d"], gt, bg, batch.u,
+                mcfg=tr.mcfg, rcfg=rcfg, tcfg=tcfg, mesh=mesh))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.stack(losses).tolist(), ms
+
+
+def curved_loop(tr, steps: int, mesh=None) -> tuple:
+    """``CurvedTrainer.train``'s schedule (a refresh every
+    ``grid_update_interval`` steps, broadcast under ``mesh``; each step's
+    draws) for ``steps`` steps of ``curved_train_step(mesh=)``.  Returns
+    (losses, ms a step)."""
+    from nerf_texture_tpu_torch.parallel.train import sync_grid
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        curved_train_step, sample_curved_batch)
+
+    fcfg, tcfg = tr.ccfg.field, tr.tcfg
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        if tr.state.step % tcfg.grid_update_interval == 0:
+            tr._refresh()
+            if mesh is not None:
+                sync_grid(tr.state, mesh)
+        level = (int(torch.randint(0, fcfg.num_levels, (),
+                                   generator=tr.generator,
+                                   device=tr.device))
+                 if fcfg.clustering else None)
+        batch = sample_curved_batch(
+            tr.generator, num_frames=tr.dataset.num_frames, H=tr.H, W=tr.W,
+            tcfg=tcfg, rcfg=tr.rcfg, fcfg=fcfg, level=level)
+        losses.append(curved_train_step(
+            tr.state, batch, tr.field_state, tr.poses, tr.images,
+            tr.intrinsics, ccfg=tr.ccfg, rcfg=tr.rcfg, tcfg=tcfg, H=tr.H,
+            W=tr.W, mode=tr.mode, rt=tr.runtime,
+            anchor_tab=tr._refresh_anchor_tab(), mesh=mesh)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.stack(losses).tolist(), ms
+
+
+def _par_trainers(dev, ds):
+    """The phase-7 NGP trainer and a phase-10 curved trainer maker (seed
+    7), the curved one sharing one template's host set-up."""
+    from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
+    from nerf_texture_tpu_torch.geometry.projector import MeshProjector
+    from nerf_texture_tpu_torch.models import mesh_field, ngp
+    from nerf_texture_tpu_torch.models.curved_field import CurvedFieldConfig
+    from nerf_texture_tpu_torch.models.mesh_field import MeshFieldConfig
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        CurvedTrainConfig, CurvedTrainer)
+    from nerf_texture_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    def ngp_tr():
+        return Trainer(ds, ngp.NGPConfig(**BENCH_NGP),
+                       RenderConfig(**BENCH_RENDER),
+                       TrainConfig(**BENCH_TRAIN), seed=7, device=dev)
+
+    fstate = mesh_field.make_state(MeshProjector(
+        make_icosphere(4, radius=0.5), device=dev))
+    shared = {}
+
+    def curved_tr():
+        tr = CurvedTrainer(ds, fstate, CurvedFieldConfig(
+            field=MeshFieldConfig(), light_model="SH"),
+            RenderConfig(**CURVED_RENDER),
+            CurvedTrainConfig(**CURVED_TRAIN), seed=7, device=dev)
+        if shared:
+            tr._near_cells, tr._anchor_tab = shared["near"], shared["tab"]
+        tr._get_near_cells()
+        tr._anchor_table()
+        shared.update(near=tr._near_cells, tab=tr._anchor_tab)
+        tr.initialize_states(1)
+        return tr
+
+    return ngp_tr, curved_tr
+
+
+def _par_barrier(mesh):
+    mesh.all_reduce(torch.zeros(1, device=mesh.device), "world")
+
+
+def _state_sums(state, mesh) -> torch.Tensor:
+    """One f64 checksum a whole leaf (its bits read as int32) of the
+    params, Adam moments, EMA and grid: reduced by MAX and MIN over the
+    ranks, equal sums say every rank holds the same bits."""
+    from nerf_texture_tpu_torch.parallel.train import gathered_leaf
+    from nerf_texture_tpu_torch.train.trainer import param_leaves
+
+    sums = []
+
+    def bits(t):
+        t = t.detach().contiguous()
+        if t.dtype in (torch.float32, torch.int32):
+            t = t.view(torch.int32)
+        return torch.sum(t.to(torch.float64) * torch.arange(
+            1, t.numel() + 1, device=t.device, dtype=torch.float64).reshape(
+                t.shape))
+
+    for p, e in zip(param_leaves(state.params),
+                    param_leaves(state.ema_params)):
+        st = state.optimizer.state[p]
+        for x in (p, e, st["exp_avg"], st["exp_avg_sq"]):
+            sums.append(bits(gathered_leaf(p, x)))
+    for t in state.occ:
+        sums.append(bits(t))
+    if getattr(state, "error_map", None) is not None:
+        sums.append(bits(state.error_map))
+    return torch.stack(sums)
+
+
+def _ranks_equal(state, mesh) -> bool:
+    s = _state_sums(state, mesh)
+    hi, lo = s.clone(), s.clone()
+    mesh.all_reduce(hi, "world", op=torch.distributed.ReduceOp.MAX)
+    mesh.all_reduce(lo, "world", op=torch.distributed.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def _single_mesh(dev):
+    """A one-rank mesh inside a process group (no collectives)."""
+    from nerf_texture_tpu_torch.parallel.sharding import Mesh
+    return Mesh(ranks=np.zeros((1, 1), np.int64), data_index=0,
+                model_index=0, device=dev)
+
+
+def _frame_diff(a, b, wa, wb) -> tuple:
+    return (psnr(a, b), float(np.abs(a - b).max()),
+            float(np.mean((wa > 0) != (wb > 0))))
+
+
+def par_band_frames(name, render, single, mesh, tag: str) -> dict:
+    """One frame through ``render(plain_select)`` (render_image_sharded)
+    with the selection kernels' launch counts from 0 just before it: the
+    band's kernel frame bit for bit with its plain-selection frame, and
+    (rank 0) the frame within the FRAME_* bounds of ``single()``, the
+    single-rank frame.  Returns launches and ms."""
+    from nerf_texture_tpu_torch.ops.proxy_select import (proxy_select,
+                                                         proxy_select_cdf)
+
+    render(False)                                  # warm-up
+    torch.cuda.synchronize()
+    proxy_select_cdf.launches = proxy_select.launches = 0
+    t0 = time.perf_counter()
+    out = render(False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"cdf": proxy_select_cdf.launches, "topk": proxy_select.launches}
+    plain = render(True)
+    same = bool(torch.equal(out["image"], plain["image"]))
+    res = {"ms": ms, "launches": launches, "bitwise": same,
+           "chunks": out["chunks"], "live": out["live"]}
+    check(same, f"{tag} {name}: the band's kernel frame differs from its "
+          f"plain-selection frame")
+    if mesh.data_index == 0 and mesh.model_index == 0 and single is not None:
+        ref = single()
+        res["vs_single"] = _frame_diff(
+            out["image"].cpu().numpy(), ref["image"].cpu().numpy(),
+            out["weights_sum"].cpu().numpy(), ref["weights_sum"].cpu().numpy())
+    return res
+
+
+def par_dp(dev, rank: int, world: int) -> dict:
+    """Data parallel over ``world`` ranks: the NGP (50 steps) and the
+    curved model (32 steps, 2 refreshes) in lockstep with rank 0's
+    single-rank runs, band frames of both trained states at data
+    ``world``, the NGP's chunk fallback at 2 cascades; on 2 ranks also one
+    NGP and one curved step at model 2.  Saves the trained states for the
+    4-rank job (rank 0)."""
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.parallel import make_mesh, shard_state
+    from nerf_texture_tpu_torch.parallel.train import shard_curved_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = SyntheticSphereDataset(n_frames=8, H=800, W=800)
+    ngp_tr, curved_tr = _par_trainers(dev, ds)
+    mesh = make_mesh(world, 1, device=dev)
+    res = {"rank": rank, "world": world, "ref": {}}
+    # the single-rank runs: the NGP's on rank 0, the curved one's on rank
+    # 1, side by side
+    for name, make, loop, steps in (
+            ("ngp", ngp_tr, ngp_loop, PAR_NGP_STEPS),
+            ("curved", curved_tr, curved_loop, PAR_CURVED_STEPS)):
+        if rank == (0 if name == "ngp" else 1):
+            tr = make()
+            res["ref"][name], res["ref"][name + "_ms"] = loop(tr, steps)
+            res["ref"][name + "_psnr"] = tr.eval_psnr([0], use_ema=False)
+            del tr
+            torch.cuda.empty_cache()
+    _par_barrier(mesh)
+    # -- NGP, data parallel
+    tr = ngp_tr()
+    tr.mark_untrained()
+    tr.state = shard_state(tr.state, mesh)
+    losses, ms = ngp_loop(tr, PAR_NGP_STEPS, mesh)
+    res["ngp"] = {"losses": losses, "ms": ms,
+                  "equal": _ranks_equal(tr.state, mesh)}
+    if rank == 0:
+        res["ngp"]["psnr"] = tr.eval_psnr([0], use_ema=False)
+        torch.save({"params": tr.state.params, "occ": tr.state.occ},
+                   os.path.join(PAR_DIR, "ngp_state.pt"))
+    res["frames"] = par_ngp_frames(tr, mesh, dev)
+    del tr
+    # -- curved, data parallel
+    ctr = curved_tr()
+    ctr.state, ctr.field_state = shard_curved_state(ctr.state,
+                                                    ctr.field_state, mesh)
+    losses, ms = curved_loop(ctr, PAR_CURVED_STEPS, mesh)
+    res["curved"] = {"losses": losses, "ms": ms,
+                     "equal": _ranks_equal(ctr.state, mesh)}
+    if rank == 0:
+        res["curved"]["psnr"] = ctr.eval_psnr([0], use_ema=False)
+        torch.save({"params": ctr.state.params, "occ": ctr.state.occ},
+                   os.path.join(PAR_DIR, "curved_state.pt"))
+    res["frames"].update(par_curved_frames(ctr, mesh))
+    del ctr
+    torch.cuda.empty_cache()
+    if world == 2:
+        res["tp"] = par_tp_steps(dev, ds, ngp_tr, curved_tr, 1, 2)
+    return res
+
+
+def _par_pose():
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    return orbit_pose(1.25, 2 * np.pi * 0.5 / 8, 2.0)
+
+
+def par_ngp_frames(tr, mesh, dev) -> dict:
+    """Band frames of an NGP state at data ``mesh``: the bench selection
+    (CDF, cap 4) and top-k (cap 8); the chunk fallback at 2 cascades."""
+    from nerf_texture_tpu_torch.parallel.eval import render_image_sharded
+    from nerf_texture_tpu_torch.train.trainer import (ngp_field_apply,
+                                                      ngp_infer_params,
+                                                      render_frame)
+
+    pose, intr = _par_pose(), tr.dataset.intrinsics
+    H, W = tr.H, tr.W
+    iparams = ngp_infer_params(tr.state.params, tr.mcfg)
+    occ = tr.state.occ
+    out = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    for name, rc in (("ngp_cdf", tr.rcfg),
+                     ("ngp_topk", dataclasses.replace(
+                         tr.rcfg, infer_cdf=False, infer_color_cap=8))):
+        out[name] = par_band_frames(
+            name, lambda plain, rc=rc: render_image_sharded(
+                ngp_field_apply, tr.mcfg, iparams, occ.occ, pose, intr, H, W,
+                rc, mesh, density=occ.density, plain_select=plain),
+            lambda rc=rc: render_frame(iparams, occ, pose, intr, H, W,
+                                       tr.mcfg, rc),
+            mesh, "parallel")
+    # the chunk fallback: the same grid as 2 cascades (the outer one empty)
+    rc2 = dataclasses.replace(tr.rcfg, cascades=2)
+    occ2 = torch.cat([occ.occ, torch.zeros_like(occ.occ)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fb = render_image_sharded(ngp_field_apply, tr.mcfg, iparams, occ2, pose,
+                              intr, H, W, rc2, mesh)
+    torch.cuda.synchronize()
+    res = {"ms": (time.perf_counter() - t0) * 1e3, "chunks": fb["chunks"]}
+    if mesh.data_index == 0 and mesh.model_index == 0:
+        one = render_image_sharded(ngp_field_apply, tr.mcfg, iparams, occ2,
+                                   pose, intr, H, W, rc2, _single_mesh(dev))
+        res["vs_single"] = _frame_diff(
+            fb["image"].cpu().numpy(), one["image"].cpu().numpy(),
+            fb["weights_sum"].cpu().numpy(), one["weights_sum"].cpu().numpy())
+    out["ngp_chunks_2_cascades"] = res
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def par_curved_frames(ctr, mesh) -> dict:
+    """The live band frame (CDF) of a curved state at data ``mesh``."""
+    from nerf_texture_tpu_torch.parallel.eval import render_image_sharded
+    from nerf_texture_tpu_torch.render.renderer import (PrepassState,
+                                                        render_image)
+    from nerf_texture_tpu_torch.train.curved_trainer import (
+        curved_anchor_apply, curved_field_apply)
+
+    pose, intr = _par_pose(), ctr.dataset.intrinsics
+    static = (ctr.ccfg, ctr.mode, "RGB", "Full")
+    bundle = {"params": ctr._infer_params(ctr.state.params),
+              "field_state": ctr.field_state, "rt": ctr.runtime,
+              "anchor_tab": ctr._anchor_table()}
+    occ = ctr.state.occ
+    kw = dict(anchor_apply=curved_anchor_apply)
+    out = {}
+    # the bench's block-8 carve (its baked arm's settings) and the live
+    # config's block 4, whose hit blocks pass the tau sweep's cap of 4096
+    # (a band sweeps 4096 of its own: the frames differ, not gated)
+    for name, rc, gate in (
+            ("curved_cdf_block8", dataclasses.replace(ctr.rcfg,
+                                                      **CURVED_BAKED), True),
+            ("curved_cdf_block4", ctr.rcfg, False)):
+        out[name] = par_band_frames(
+            name, lambda plain, rc=rc: render_image_sharded(
+                curved_field_apply, static, bundle, occ.occ, pose, intr,
+                ctr.H, ctr.W, rc, mesh, density=occ.density,
+                plain_select=plain, **kw),
+            lambda rc=rc: torch.no_grad()(render_image)(
+                curved_field_apply, static, bundle, PrepassState.build(
+                    occ.occ, rc, density=occ.density), pose, intr, ctr.H,
+                ctr.W, rc, **kw), mesh, "parallel")
+        out[name]["gate"] = gate
+    return out
+
+
+def par_tp_steps(dev, ds, ngp_tr, curved_tr, data: int, model: int) -> dict:
+    """One NGP and one curved step on a data x model mesh (the MLPs split
+    over 'model'), beside rank 0's single-rank first steps: the losses
+    and whether every rank holds the same state."""
+    from nerf_texture_tpu_torch.parallel import make_mesh, shard_state
+    from nerf_texture_tpu_torch.parallel.train import shard_curved_state
+
+    mesh = make_mesh(data, model, device=dev)
+    first = mesh.data_index == 0 and mesh.model_index == 0
+    out = {}
+    for name, make, loop, shard in (
+            ("ngp", ngp_tr, ngp_loop,
+             lambda tr: setattr(tr, "state", shard_state(tr.state, mesh))),
+            ("curved", curved_tr, curved_loop,
+             lambda tr: setattr(tr, "state", shard_curved_state(
+                 tr.state, tr.field_state, mesh)[0]))):
+        if first:
+            tr = make()
+            out[name + "_single"] = loop(tr, 1)[0][0]
+            del tr
+        _par_barrier(mesh)
+        tr = make()
+        if name == "ngp":
+            tr.mark_untrained()
+        shard(tr)
+        losses, ms = loop(tr, 1, mesh)
+        out[name] = losses[0]
+        out[name + "_ms"] = ms
+        out[name + "_equal"] = _ranks_equal(tr.state, mesh)
+        out[name + "_split"] = sum(
+            getattr(p, "tp_split", None) is not None
+            for p in _leaves(tr.state.params))
+        del tr
+        torch.cuda.empty_cache()
+    out["mesh"] = [data, model]
+    return out
+
+
+def _leaves(params):
+    from nerf_texture_tpu_torch.train.trainer import param_leaves
+    return param_leaves(params)
+
+
+def par_tp4(dev, rank: int, world: int) -> dict:
+    """4 ranks: one NGP and one curved step at data 2 x model 2, and band
+    frames at data 4 of the 2-rank job's trained states."""
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = SyntheticSphereDataset(n_frames=8, H=800, W=800)
+    ngp_tr, curved_tr = _par_trainers(dev, ds)
+    res = {"rank": rank, "world": world,
+           "tp": par_tp_steps(dev, ds, ngp_tr, curved_tr, 2, 2)}
+    mesh = make_mesh(world, 1, device=dev)
+    tr = ngp_tr()
+    saved = torch.load(os.path.join(PAR_DIR, "ngp_state.pt"),
+                       map_location=dev, weights_only=False)
+    tr.state.params, tr.state.occ = saved["params"], saved["occ"]
+    res["frames"] = par_ngp_frames(tr, mesh, dev)
+    del tr
+    ctr = curved_tr()
+    saved = torch.load(os.path.join(PAR_DIR, "curved_state.pt"),
+                       map_location=dev, weights_only=False)
+    ctr.state.params, ctr.state.occ = saved["params"], saved["occ"]
+    ctr._params_replaced()
+    res["frames"].update(par_curved_frames(ctr, mesh))
+    return res
+
+
+def par_nccl1(dev, rank: int, world: int) -> dict:
+    """The NGP's first step over NCCL at a world of one, beside two runs
+    of the single-rank step (their difference bounds the NCCL step's:
+    CUDA's index_add_ in the backward is not deterministic)."""
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+    from nerf_texture_tpu_torch.parallel import make_mesh, shard_state
+    from nerf_texture_tpu_torch.parallel.train import gathered_leaf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = SyntheticSphereDataset(n_frames=8, H=800, W=800)
+    ngp_tr, _ = _par_trainers(dev, ds)
+    mesh = make_mesh(1, 1, device=dev)
+    runs = []
+    for use_mesh in (None, None, mesh):
+        tr = ngp_tr()
+        tr.mark_untrained()
+        if use_mesh is not None:
+            tr.state = shard_state(tr.state, use_mesh)
+        loss = ngp_loop(tr, 1, use_mesh)[0][0]
+        runs.append((loss, [gathered_leaf(p).clone()
+                            for p in _leaves(tr.state.params)]))
+        del tr
+
+    def diff(a, b):
+        d = [torch.abs(x - y) for x, y in zip(a[1], b[1])]
+        return (abs(a[0] - b[0]), max(float(t.max()) for t in d),
+                sum(int((t > 2e-5).sum()) for t in d))
+
+    return {"backend": mesh.backend, "distributed": mesh.distributed,
+            "single_vs_single": diff(runs[0], runs[1]),
+            "nccl_vs_single": diff(runs[2], runs[0]),
+            "losses": [r[0] for r in runs],
+            "entries": sum(t.numel() for t in runs[0][1])}
+
+
+PAR_JOBS = {"dp": par_dp, "tp4": par_tp4, "nccl1": par_nccl1}
+
+
+def rank_main(job: str) -> int:
+    """One rank of phase 19's ``job`` (started by ``rank_group``)."""
+    import torch.distributed as dist
+
+    from nerf_texture_tpu_torch.parallel import initialize_multihost
+
+    print(PAR_RANK_START)
+    backend = os.environ["SMOKE_BACKEND"]
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if world == 1:
+        # a world of one is not a launch to initialize_multihost: join
+        # the group here (NCCL's start-up and its reduction path)
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+            f"{os.environ['MASTER_PORT']}", world_size=1, rank=0)
+    else:
+        check(initialize_multihost(backend=backend, timeout=PAR_TIMEOUT),
+              "initialize_multihost did not join the process group")
+    check(dist.get_backend() == backend, f"backend {dist.get_backend()}, "
+          f"asked for {backend}")
+    if backend == "gloo":
+        torch.cuda.set_device(0)               # the ranks share one card
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = PAR_JOBS[job](dev, rank, world)
+    res.update(backend=dist.get_backend(), world=world, rank=rank,
+               device=str(dev), wall_s=time.perf_counter() - t0,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    with open(os.path.join(PAR_DIR, f"{job}_{world}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _lockstep(got, want, first: int) -> tuple:
+    got, want = np.asarray(got), np.asarray(want)
+    d = np.abs(got - want)
+    return (float(d.max()), float((d / np.abs(want)).max()),
+            float(d[:first].max()), float(abs(got.mean() - want.mean())))
+
+
+def parallel_phase(dev, card: str) -> dict:
+    """Phase 19: ``parallel/`` on the card.  Returns the selection kernels'
+    launches of the band frames, by path."""
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    print(f"parallel: {count} card(s) ({card}); ranks of one card share "
+          f"cuda:0 over gloo, so every time below is gloo traffic through "
+          f"the host on one card, not a multi-GPU speed")
+    launches = {}
+
+    def report(tag, ranks):
+        for r in ranks:
+            print(f"parallel {tag}: rank {r['rank']} of {r['world']}: backend "
+                  f"{r['backend']}, {r['device']}, peak memory "
+                  f"{r['peak_mib']:.1f} MiB, wall {r['wall_s']:.1f} s "
+                  f"({card})")
+            check(r["backend"] == tag.split()[0],
+                  f"rank {r['rank']} ran {r['backend']}")
+        for name, f in ranks[0].get("frames", {}).items():
+            key = f"parallel_{tag.split()[1]}_{name}"
+            for r in ranks:
+                for kind, n in r["frames"][name].get("launches", {}).items():
+                    if n:
+                        launches.setdefault(kind, {})[key] = \
+                            launches.get(kind, {}).get(key, 0) + n
+            if "launches" in f:
+                kind = "topk" if name.endswith("topk") else "cdf"
+                check(launches.get(kind, {}).get(key, 0) > 0,
+                      f"{key}: {kind} selection kernel never launched")
+            line = (f"parallel {tag}: {name} 800x800: {f['ms']:.1f} ms on "
+                    f"rank 0, chunks {[r['frames'][name]['chunks'] for r in ranks]}")
+            if "launches" in f:
+                line += (f", selection launches "
+                         f"{[r['frames'][name]['launches'] for r in ranks]}, "
+                         f"kernel frame == plain-selection frame bit for bit "
+                         f"on every rank: "
+                         f"{all(r['frames'][name]['bitwise'] for r in ranks)}")
+            p, e, m = f["vs_single"]
+            gate = f.get("gate", True)
+            line += (f"; vs the single-rank frame: PSNR {p:.2f} dB, max abs "
+                     f"{e:.3g}, live mismatch {m:.4f}"
+                     f"{'' if gate else ' (not gated: the tau sweep cap)'} "
+                     f"({card})")
+            print(line)
+            check(not gate or (p >= FRAME_PSNR_MIN and e <= FRAME_MAX_ABS
+                               and m <= FRAME_LIVE_MISMATCH),
+                  f"parallel {tag} {name} vs the single-rank frame: PSNR {p}, "
+                  f"max abs {e}, live mismatch {m}")
+        for r in ranks:
+            if "tp" in r:
+                tp = r["tp"]
+                for name in ("ngp", "curved"):
+                    check(tp[name + "_equal"], f"{tag} tp {name}: ranks "
+                          f"differ after a step")
+                    check(tp[name + "_split"] > 0, f"{tag} tp {name}: no "
+                          f"leaf split over 'model'")
+        tp = ranks[0].get("tp")
+        if tp:
+            for name in ("ngp", "curved"):
+                rel = abs(tp[name] - tp[name + "_single"]) \
+                    / abs(tp[name + "_single"])
+                print(f"parallel {tag}: {name} step at data {tp['mesh'][0]} "
+                      f"x model {tp['mesh'][1]} ({tp[name + '_split']} "
+                      f"leaves split): loss {tp[name]:.6f} vs single-rank "
+                      f"{tp[name + '_single']:.6f} (rel {rel:.2e}), "
+                      f"{tp[name + '_ms']:.1f} ms, ranks bit for bit "
+                      f"({card})")
+                check(rel <= 1e-3, f"{tag} tp {name} loss rel {rel}")
+
+    # -- data 2 (and model 2), gloo
+    torch.cuda.empty_cache()       # this process's cache, for the ranks
+    ranks = rank_group("dp", 2, "gloo", card)
+    r0 = ranks[0]
+    ref = {**ranks[0]["ref"], **ranks[1]["ref"]}
+    for name, first in (("ngp", PAR_NGP_STEPS), ("curved", 16)):
+        got, want = r0[name]["losses"], ref[name]
+        mx, rel, first_mx, mean = _lockstep(got, want, first)
+        print(f"parallel gloo dp: {name} {len(got)} steps at data 2 vs the "
+              f"single-rank run: loss max abs diff {mx:.3g} (max rel "
+              f"{rel:.3g}, first refresh cycle {first_mx:.3g}), mean diff "
+              f"{mean:.3g}; training-view PSNR {r0[name]['psnr']:.2f} vs "
+              f"{ref[name + '_psnr']:.2f} dB; {r0[name]['ms']:.1f} "
+              f"ms/step vs {ref[name + '_ms']:.1f} single-rank; ranks "
+              f"bit for bit: {all(r[name]['equal'] for r in ranks)} ({card})")
+        check(all(r[name]["equal"] for r in ranks),
+              f"gloo dp {name}: the ranks' states differ")
+        check(all(r[name]["losses"] == got for r in ranks),
+              f"gloo dp {name}: the ranks' losses differ")
+        if name == "ngp":
+            check(rel <= 1e-2, f"gloo dp ngp lockstep rel {rel}")
+        else:
+            check(first_mx <= 1e-2 and mx <= 0.1 and mean <= 1e-2,
+                  f"gloo dp curved lockstep {mx} {first_mx} {mean}")
+        check(abs(r0[name]["psnr"] - ref[name + "_psnr"]) <= 0.3,
+              f"gloo dp {name} PSNR {r0[name]['psnr']} vs "
+              f"{ref[name + '_psnr']}")
+    report("gloo data2", ranks)
+    # -- data 4 and data 2 x model 2, gloo
+    report("gloo data4", rank_group("tp4", 4, "gloo", card))
+    # -- NCCL at a world of one
+    n1 = rank_group("nccl1", 1, "nccl", card)[0]
+    ss, ns = n1["single_vs_single"], n1["nccl_vs_single"]
+    print(f"parallel nccl world 1: backend {n1['backend']} (a process "
+          f"group: {n1['distributed']}); one NGP step's loss "
+          f"{n1['losses'][2]:.7f} vs single-rank {n1['losses'][0]:.7f} "
+          f"(two single-rank runs differ by {ss[0]:.3g}, NCCL by "
+          f"{ns[0]:.3g}); params max abs diff {ns[1]:.3g} on {ns[2]} of "
+          f"{n1['entries']} entries > 2e-5, single vs single {ss[1]:.3g} on "
+          f"{ss[2]} ({card})")
+    check(n1["backend"] == "nccl" and n1["distributed"], "nccl world 1")
+    check(ns[0] <= max(2 * ss[0], 1e-5 * abs(n1["losses"][0])),
+          f"nccl loss diff {ns[0]} beyond the single-rank runs' {ss[0]}")
+    check(ns[2] <= max(2 * ss[2], 1e-4 * n1["entries"]),
+          f"nccl params: {ns[2]} entries off, single runs {ss[2]}")
+    if count >= 2:
+        world = min(count, 4)
+        report(f"nccl data{world}", rank_group("dp", world, "nccl", card))
+    else:
+        print(f"parallel: one card: the multi-card runs over NCCL (data "
+              f"parallel steps and band frames on min(count, 4) cards) did "
+              f"not run ({card})")
+    print(f"parallel: phase 19 wall {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+    return launches
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank":
+        return rank_main(sys.argv[2])           # one rank of phase 19
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4022,6 +4792,7 @@ def main() -> int:
     only_viewer = sys.argv[1:] == ["--only", "viewer"]
     only_background = sys.argv[1:] == ["--only", "background"]
     only_prepare = sys.argv[1:] == ["--only", "prepare"]
+    only_parallel = sys.argv[1:] == ["--only", "parallel"]
     as_worker = sys.argv[1:] == ["--worker", "relight"]
     as_viewer_worker = sys.argv[1:] == ["--worker", "viewer"]
 
@@ -4078,6 +4849,14 @@ def main() -> int:
         print(VIEWER_WORKER_START)
         print(json.dumps({"scenes": scenes_phase(dev, card, CLI_PLAIN_ITERS,
                                                  prepare=True)}))
+        return 0
+    if only_parallel:
+        # a shorter run while working on phase 19: the device, the build
+        # and that phase only; no result lines
+        t0 = time.perf_counter()
+        parallel_phase(dev, card)
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 19 "
+              f"only, {time.perf_counter() - t0:.1f} s ({card})")
         return 0
     if only_prepare:
         # a shorter run while working on phase 18: the device, the build,
@@ -4332,7 +5111,8 @@ def main() -> int:
     lap("15")
 
     # -- 16. the JPEG scene, bound 2 and --gui (the worker) -------------------
-    b2_topk, b2_cdf = scenes_from_worker(viewer_worker, ngp_psnr, card)
+    (b2_topk, b2_cdf), par = scenes_from_worker(viewer_worker, ngp_psnr,
+                                                card)
     lap("16")
 
     print("smoke: phase walls: " + ", ".join(
@@ -4347,7 +5127,8 @@ def main() -> int:
                  "curved_baked": trained["baked"],
                  "texture_field": texture["texture_field"],
                  "texture_patch": texture["texture_patch"], **surfaces,
-                 **relight_cdf, **viewer, "bound2_cli_eval": b2_cdf}
+                 **relight_cdf, **viewer, "bound2_cli_eval": b2_cdf,
+                 **par.get("cdf", {})}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape
@@ -4387,7 +5168,8 @@ def main() -> int:
                     {"ngp_trained_render_topk": launches["topk"],
                      "ngp_background_topk": background["topk"],
                      "texture_two_round": texture["texture_two_round"],
-                     **entry, **relight_topk, "bound2_cli_eval": b2_topk},
+                     **entry, **relight_topk, "bound2_cli_eval": b2_topk,
+                     **par.get("topk", {})},
                     topk_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -64,6 +64,13 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
+    from nerf_texture_tpu_torch.parallel import initialize_multihost
+
+    # a torchrun launch (MASTER_ADDR etc. set): each process joins the
+    # process group and trains on its own card (cuda:LOCAL_RANK); without
+    # one, a no-op
+    initialize_multihost(backend="nccl" if torch.device(args.device).type
+                         == "cuda" else "gloo")
     from nerf_texture_tpu_torch.data.provider import NeRFDataset
     from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
     from nerf_texture_tpu_torch.models import ngp

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.hashgrid_packed import PackedGridSpec, packed_encode_bound
+from ..utils.mlp import (copy_to_model, model_columns, reduce_from_model,
+                         tp_layers)
 
 
 def init_lip_mlp(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -35,7 +37,11 @@ def init_lip_mlp(generator: torch.Generator, in_dim: int, out_dim: int,
 
 def apply_lip_mlp(layers, x: torch.Tensor) -> torch.Tensor:
     """Weights scaled column-wise by min(1, softplus(c) / sum|W_col|);
-    ReLU between layers, linear head."""
+    ReLU between layers, linear head.  Layers split over a mesh's model
+    axis run tensor-parallel (``utils.mlp``)."""
+    if any(getattr(lyr["w"], "tp_split", None) is not None
+           for lyr in layers):
+        return tp_layers(layers, x, _lip_linear_tp)
     h = x
     n = len(layers)
     for i, lyr in enumerate(layers):
@@ -46,6 +52,32 @@ def apply_lip_mlp(layers, x: torch.Tensor) -> torch.Tensor:
         if i < n - 1:
             h = torch.relu(h)
     return h
+
+
+def _lip_linear_tp(lyr, h, tp, mesh, last):
+    """One Lipschitz layer of a split MLP.  A column layer scales its own
+    columns (its c through ``copy_to_model``: its consumers are split);
+    a row layer's column sums are partial, summed over the model group,
+    and the scale they give reaches the split product through
+    ``copy_to_model``."""
+    w, c, b = lyr["w"], lyr["c"], lyr["b"]
+    col = tp is not None and tp.dim == 1
+    row = tp is not None and tp.dim == 0
+    absrowsum = torch.sum(torch.abs(w), dim=0)
+    if row:
+        absrowsum = reduce_from_model(absrowsum, mesh)
+    if col:
+        c = copy_to_model(c, mesh)
+        h = copy_to_model(h, mesh)
+        b = model_columns(b, mesh, w.shape[1])
+    scale = torch.clamp(F.softplus(c) / (absrowsum + 1e-12), max=1.0)
+    if row:
+        scale = copy_to_model(scale, mesh)
+    h = h @ (w * scale[None, :])
+    if row:
+        h = reduce_from_model(h, mesh)
+    h = h + b
+    return h if last else torch.relu(h)
 
 
 def lip_regularization(layers) -> torch.Tensor:

@@ -116,7 +116,8 @@ def render_rays(field_fn, occ, rays_o, rays_d, cfg: RenderConfig, *,
                 bg_color=1.0, aabb=None, pool_mean: int | None = None,
                 anchor_fn=None, nears=None, fars=None,
                 march_steps: int | None = None, sigma_fn=None,
-                color_fn=None, pool_rays: int | None = None):
+                color_fn=None, pool_rays: int | None = None,
+                pool_hook=None):
     """Render a batch of rays (training, and the pool path of inference).
 
     field_fn: (xyzs [M, 3], dirs [M, 3][, frames]) -> (sigmas [M],
@@ -142,7 +143,10 @@ def render_rays(field_fn, occ, rays_o, rays_d, cfg: RenderConfig, *,
     (pool only) the render is two-phase: sigma_fn(xyzs, dirs[, frames]) ->
     sigma or (sigma, aux) over the whole pool, ``survivor_pool`` of the
     weights, then color_fn(x2, d2, aux2[, frames2]) -- or field_fn when
-    there is no aux -- on the survivors only.
+    there is no aux -- on the survivors only.  ``pool_hook(flat)``, if
+    given, sees the pool (``FlatSamples``) before the field runs (the
+    data-parallel step places its rank's slots in the global pool
+    there).
 
     Returns dict(image [N, 3], depth [N], weights_sum [N], counts [N],
     ...composited extras)."""
@@ -174,6 +178,8 @@ def render_rays(field_fn, occ, rays_o, rays_d, cfg: RenderConfig, *,
         if pool_rays:
             budget = budget // n_pool * N
         flat = flatten_samples(m, budget)
+        if pool_hook is not None:
+            pool_hook(flat)
         xyzs, dirs = flat_points(rays_o, rays_d, flat, cfg.bound)
         if per_sample_anchor:
             frames_flat = anchor_fn(rays_o, rays_d, xyzs, flat.valid)
@@ -715,7 +721,8 @@ def _live_permutation(hit_b: torch.Tensor, *, H: int, W: int, Hb: int,
 def _prepass_compact(ro_b, rd_b, occ_dil, aabb, bound, min_near, *,
                      grid_size: int, margin_steps: float, H: int, W: int,
                      Hb: int, Wb: int, B: int, nb: int, dens8=None,
-                     tau_cull: float = 0.0, tau_samples: int = 32):
+                     tau_cull: float = 0.0, tau_samples: int = 32,
+                     live_rows: tuple[int, int] | None = None):
     """Block prepass + live compaction on the device.
 
     With ``dens8`` and ``tau_cull`` > 0, a carve pass drops blocks whose
@@ -724,6 +731,9 @@ def _prepass_compact(ro_b, rd_b, occ_dil, aabb, bound, min_near, *,
     window to the alpha-bearing interval (2-sample margin, 3x3 union).
     The sweep covers the first TAUB = min(4096, nb) hit blocks; blocks
     past the cap keep their full span (warned about once per call site).
+
+    ``live_rows`` (lo, hi): only the block rows lo..hi-1 become live (the
+    others are a band's halo, prepassed for the carve's neighbourhoods).
 
     Returns (perm [n], count [], t0 [nb], t1 [nb], n_hit []): the live
     permutation and count, the block windows, and the number of hit
@@ -779,6 +789,9 @@ def _prepass_compact(ro_b, rd_b, occ_dil, aabb, bound, min_near, *,
         t1_r = torch.where(has_nb, torch.minimum(t1, hi3.reshape(-1)), t1)
         t0 = t0_r
         t1 = torch.maximum(t1_r, t0_r)
+    if live_rows is not None:
+        r = torch.arange(nb, device=hit.device) // Wb
+        hit = hit & (r >= live_rows[0]) & (r < live_rows[1])
     perm, count = _live_permutation(hit, H=H, W=W, Hb=Hb, Wb=Wb, B=B, nb=nb)
     return perm, count, t0, t1, n_hit
 
@@ -799,12 +812,14 @@ def _frame_buffer_packed(bg, *, n: int, device) -> torch.Tensor:
     return torch.cat([image, torch.zeros((n, 2), device=device)], dim=-1)
 
 
-def _chunk_rays(pose3, intr, idx_c, W: int):
+def _chunk_rays(pose3, intr, idx_c, row0: int, W: int):
     """Chunk rays computed in place from (pose, intrinsics) and pixel ids
-    (the math of data.rays.get_rays restricted to the chunk's pixels)."""
+    (the math of data.rays.get_rays restricted to the chunk's pixels).
+    ``row0`` offsets the pixel rows: the ids count from a band's first
+    row."""
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
     i = (idx_c % W).to(torch.float32) + 0.5
-    j = (idx_c // W).to(torch.float32) + 0.5
+    j = (idx_c // W + row0).to(torch.float32) + 0.5
     dirs = torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)],
                        dim=-1)
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
@@ -815,7 +830,7 @@ def _chunk_rays(pose3, intr, idx_c, W: int):
 
 def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
                 t0_d, t1_d, prepass: PrepassState, cfg: RenderConfig, *,
-                B: int, W: int, Wb: int, chunk: int,
+                B: int, W: int, Wb: int, chunk: int, row0: int = 0,
                 plain_select: bool = False) -> torch.Tensor:
     """Gather-render-scatter for the live rays perm[start:start+chunk]
     (the last chunk is shorter): the proxy render over the corner table,
@@ -826,7 +841,7 @@ def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
     is updated in place and returned."""
     field_fn, anchor_fn, sigma_fn, color_fn = fns
     idx_c = perm[start:min(start + chunk, count)]
-    ro, rd = _chunk_rays(pose3, intr, idx_c, W)
+    ro, rd = _chunk_rays(pose3, intr, idx_c, row0, W)
     bg_c = frame[idx_c, :3]
     idx_b = (idx_c // (W * B)) * Wb + (idx_c % W) // B if B > 1 else idx_c
     if prepass.dens8 is not None:
@@ -919,7 +934,8 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
                  pose, intrinsics, H: int, W: int, cfg: RenderConfig, *,
                  bg_color=1.0, anchor_apply=None, sigma_apply=None,
                  color_apply=None, crop_aabb=None,
-                 plain_select: bool = False):
+                 plain_select: bool = False, row0: int = 0,
+                 frame_rows: int | None = None):
     """Render a full frame: block prepass, live compaction, one host sync
     for the live count, then a plain loop over chunks of live rays.
 
@@ -936,6 +952,13 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     crop, is intersected with the occupied AABB.  ``bg_color``: a scalar,
     an [3] colour or an [H * W, 3] image, what a ray that composites no
     weight shows.  ``plain_select``: see ``render_rays_proxy``.
+    With ``frame_rows`` (the height of a frame of one cascade), one band
+    of it: the H rows from pixel row ``row0`` on (a multiple of
+    ``prepass_block``), through the band's own block prepass and chunk
+    loop (``parallel.eval``'s scanline bands; a scalar or [3]
+    ``bg_color``).  The block rows next to the band within the frame
+    join its block prepass but are not rendered, so that the tau carve's
+    3x3 block neighbourhoods at the band's edges are the whole frame's.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: live rays rendered, chunks: chunks rendered)."""
@@ -959,19 +982,37 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     fns = _bind(params, field_static, field_apply, anchor_apply,
                 sigma_apply, color_apply)
     if prepass.occ_dil is None:
+        if frame_rows is not None:
+            raise ValueError("render_image: a band needs a grid of one "
+                             "cascade")
         return out(*_render_aabb_hits(fns, frame, pose, intr, aabb, prepass,
                                       cfg, H=H, W=W, chunk=chunk))
     B = max(1, cfg.prepass_block)
+    if row0 % B:
+        raise ValueError(f"render_image: a band's first row {row0} is not a "
+                         f"multiple of the prepass block {B}")
     Hb, Wb = -(-H // B), -(-W // B)
-    nb = Hb * Wb
+    # a band's neighbour block rows within the frame (prepassed only)
+    top = below = 0
+    if frame_rows is not None:
+        top = min(1, row0 // B)
+        below = max(0, min(1, -(-frame_rows // B) - row0 // B - Hb))
+    if top or below:
+        frame = _frame_buffer_packed(bg_color, n=(H + (top + below) * B) * W,
+                                     device=device)
+    nb = (Hb + top + below) * Wb
+    rb0 = row0 // B - top
     rays_b = get_rays(pose, torch.as_tensor(intr_np / B, device=device),
-                      Hb, Wb)
+                      rb0 + Hb + top + below, Wb)
+    rays_b = {k: v[rb0 * Wb:] for k, v in rays_b.items()}
     perm, count_d, t0_d, t1_d, n_hit_d = _prepass_compact(
         rays_b["rays_o"], rays_b["rays_d"], prepass.occ_dil, aabb,
         cfg.bound, cfg.min_near, grid_size=cfg.grid_size,
         margin_steps=(cfg.prepass_margin_steps if B > 1 else 0.0),
-        H=H, W=W, Hb=Hb, Wb=Wb, B=B, nb=nb, dens8=prepass.dens8,
-        tau_cull=cfg.prepass_tau_cull, tau_samples=tau_samples)
+        H=H + (top + below) * B, W=W, Hb=Hb + top + below, Wb=Wb, B=B,
+        nb=nb, dens8=prepass.dens8, tau_cull=cfg.prepass_tau_cull,
+        tau_samples=tau_samples,
+        live_rows=(top, top + Hb) if top or below else None)
     # the frame's one host sync: the live count (and the hit-block count
     # for the tau-sweep cap warning) in one transfer
     count, n_hit = torch.stack([count_d, n_hit_d]).tolist()
@@ -986,5 +1027,6 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     for c in range(n_chunks):
         frame = _chunk_body(fns, pose[:3], intr, frame, perm, count,
                             c * chunk, t0_d, t1_d, prepass, cfg, B=B, W=W,
-                            Wb=Wb, chunk=chunk, plain_select=plain_select)
-    return out(frame, count, n_chunks)
+                            Wb=Wb, chunk=chunk, row0=row0 - top * B,
+                            plain_select=plain_select)
+    return out(frame[top * B * W:top * B * W + n], count, n_chunks)

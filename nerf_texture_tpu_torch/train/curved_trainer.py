@@ -91,6 +91,8 @@ from ..ops import occupancy as occ_mod
 from ..ops.hashgrid_packed import inference_table, packed_encode_bound
 from ..ops.marching import march_rays, near_far_from_aabb
 from ..ops.occupancy import OccupancyGrid
+from ..parallel.sharding import data_sharded
+from ..parallel.train import reduce_gradients
 from ..render import baked as baked_mod
 from ..render.compact import flat_points, flatten_samples
 from ..render.renderer import (PrepassState, RenderConfig, _round_up,
@@ -302,7 +304,7 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
                       intrinsics, *, ccfg: CurvedFieldConfig,
                       rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
                       H: int, W: int, step: int = 0, mode: str = "none",
-                      rt=None, anchor_tab=None, error_map=None):
+                      rt=None, anchor_tab=None, error_map=None, mesh=None):
     """(loss [], render output) of one batch, differentiable in params:
     the MSE against the pixels composited on the batch's background, the
     cosine loss of the composited fine normals against their
@@ -321,12 +323,32 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
     ``error_map`` the pixels come from the frame's row ``error_map``
     [128 * 128] and the batch's draws, and the output carries the cells
     (``inds_coarse``).  The output also carries each ray's colour MSE
-    (``rgb_loss_per_ray``)."""
+    (``rgb_loss_per_ray``).
+
+    With ``mesh`` (``parallel.make_mesh``; the batch the same on every
+    rank) the rank renders its rows of the batch and returns its share
+    of the global loss (the shares sum to the single-device loss): the
+    colour MSE over the global ray count, the cosine term over the
+    global count of finite targets (one all-reduce), the terms of the
+    params alone on data rank 0 only.  The pool keeps the single-device
+    per-ray cap, and the rank's feature-noise rows are its slots of the
+    global pool (an exclusive scan of the kept samples over the data
+    group).  ``rgb_loss_per_ray`` holds the rank's rays, ``inds_coarse``
+    the whole batch's cells."""
     _check_training_features(tcfg, mode)
     inds, inds_coarse = batch.inds, None
     if tcfg.error_map:
         inds, inds_coarse = sample_ray_indices(
             None, H, W, tcfg.num_rays, error_map=error_map, draws=batch.emap)
+    u, bg, pool_hook = batch.u, batch.bg, None
+
+    def noise():
+        return batch.noise
+
+    if mesh is not None:
+        take = data_sharded(mesh)
+        inds, u, bg = take(inds), take(u), take(bg)
+        noise, pool_hook = _rank_noise(batch.noise, mesh, rcfg)
     pose, K = poses[batch.frame], intrinsics
     if tcfg.optimize_camera:
         pose, K = apply_camera_deltas(pose, K, params["camera"], batch.frame)
@@ -335,8 +357,7 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
     pixels = images[batch.frame].reshape(H * W, -1)[inds].to(
         torch.float32) / 255.0
     if pixels.shape[-1] == 4:
-        gt_rgb = pixels[:, :3] * pixels[:, 3:] \
-            + batch.bg * (1.0 - pixels[:, 3:])
+        gt_rgb = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:])
     else:
         gt_rgb = pixels[:, :3]
     anchor = None
@@ -353,18 +374,20 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
 
     def field(x, d, frames=None):
         return curved_field.forward(params, field_state, x, d, ccfg, rt,
-                                    mode=mode, noise=batch.noise,
+                                    mode=mode, noise=noise(),
                                     training=True, gamma=gamma,
                                     frames=frames)
 
     out = render_rays(field, occ.occ, rays["rays_o"], rays["rays_d"],
                       rcfg_eff, max_samples=rcfg.max_samples_train,
-                      perturb=True, u=batch.u, bg_color=batch.bg,
-                      anchor_fn=anchor)
+                      perturb=True, u=u, bg_color=bg, anchor_fn=anchor,
+                      pool_rays=None if mesh is None else tcfg.num_rays,
+                      pool_hook=pool_hook)
     per_ray = torch.mean((out["image"] - gt_rgb) ** 2, dim=-1)
     out["rgb_loss_per_ray"] = per_ray
     out["inds_coarse"] = inds_coarse
-    loss = torch.mean(per_ray)
+    loss = (torch.mean(per_ray) if mesh is None
+            else torch.sum(per_ray) / tcfg.num_rays)
     if "normal" in out and "normal_grad" in out:
         n_est = out["normal"]
         n_grad = out["normal_grad"].detach()
@@ -379,8 +402,13 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
         cos = torch.sum(n_grad_n * n_est_n, dim=-1)
         thr = tcfg.normal_cosine_threshold if not ccfg.no_visibility else 1.0
         err = -torch.clamp(cos, max=thr)
+        n_finite = torch.sum(finite).reshape(1)
+        if mesh is not None:
+            mesh.all_reduce(n_finite, "data")
         loss = loss + torch.sum(torch.where(finite, err, 0.0)) \
-            / torch.clamp(torch.sum(finite), min=1)
+            / torch.clamp(n_finite[0], min=1)
+    if mesh is not None and mesh.data_index != 0:
+        return loss, out
     cam_loss = (camera_regularization(params["camera"])
                 if tcfg.optimize_camera else None)
     loss = loss + curved_field.regular_loss(
@@ -391,31 +419,72 @@ def curved_train_loss(params, occ: OccupancyGrid, batch: CurvedBatch,
     return loss, out
 
 
+def _rank_noise(noise, mesh, rcfg: RenderConfig):
+    """(rows(), pool_hook) of a data rank: its rows of the feature noise,
+    which is drawn per slot of the global pool (``noise_rows``).  With
+    the pool, the rank's slots start at the kept samples of the earlier
+    data ranks, known once its pool is built: the hook scans them over
+    the data group (zeros past the draws: padding slots).  The dense
+    [N, K] grid's rows are the rank's rays'."""
+    if noise is None:
+        return (lambda: None), None
+    if not rcfg.pool_mean_samples:
+        k = noise.shape[0] // mesh.shape["data"]
+        part = noise[mesh.data_index * k:(mesh.data_index + 1) * k]
+        return (lambda: part), None
+    rows = {}
+
+    def pool_hook(flat):
+        start = mesh.exclusive_scan(flat.offsets[-1], "data")
+        idx = start + torch.arange(flat.ts.shape[0], device=noise.device)
+        inside = idx < noise.shape[0]
+        rows["noise"] = torch.where(
+            inside[:, None],
+            noise[torch.clamp(idx, max=noise.shape[0] - 1)], 0.0)
+
+    return (lambda: rows["noise"]), pool_hook
+
+
 def curved_train_step(state: CurvedTrainState, batch: CurvedBatch,
                       field_state: MeshFieldState, poses, images,
                       intrinsics, *, ccfg: CurvedFieldConfig,
                       rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
                       H: int, W: int, mode: str = "none", rt=None,
-                      anchor_tab=None) -> dict[str, torch.Tensor]:
+                      anchor_tab=None, mesh=None) -> dict[str, torch.Tensor]:
     """One iteration on ``batch``: loss, backward into the params only
     (not into the sample points that the -grad(sigma) target
     differentiated), ``apply_gradients``; with ``error_map`` the sampled
     cells of the frame's map become 0.1 old + 0.9 the ray's colour MSE.
-    Updates ``state`` in place; returns device scalars (no host sync)."""
+    Updates ``state`` in place; returns device scalars (no host sync).
+
+    With ``mesh`` (``parallel.make_mesh``; the state from
+    ``parallel.shard_curved_state``, the batch the same on every rank)
+    each data rank takes its rows of the batch (``curved_train_loss``),
+    the gradients are summed over the data group (``parallel.train.
+    reduce_gradients``), every rank writes the whole batch's error-map
+    cells from the gathered per-ray MSE, and the returned loss is the
+    global one."""
     emap = state.error_map[batch.frame] if tcfg.error_map else None
     loss, out = curved_train_loss(
         state.params, state.occ, batch, field_state, poses, images,
         intrinsics, ccfg=ccfg, rcfg=rcfg, tcfg=tcfg, H=H, W=W,
         step=state.step, mode=mode, rt=rt, anchor_tab=anchor_tab,
-        error_map=emap)
+        error_map=emap, mesh=mesh)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward(inputs=param_leaves(state.params))
+    loss = loss.detach()
+    if mesh is not None:
+        loss = reduce_gradients(state.params, mesh, loss)
     apply_gradients(state, tcfg)
     if tcfg.error_map:
         cells = out["inds_coarse"]
-        state.error_map[batch.frame, cells] = (
-            0.1 * emap[cells] + 0.9 * out["rgb_loss_per_ray"].detach())
-    return {"loss": loss.detach()}
+        per_ray = out["rgb_loss_per_ray"].detach()
+        if mesh is not None:
+            per_ray = mesh.gather(per_ray, [per_ray.shape[0]]
+                                  * mesh.shape["data"], "data")
+        state.error_map[batch.frame, cells] = 0.1 * emap[cells] \
+            + 0.9 * per_ray
+    return {"loss": loss}
 
 
 def distill_loss(params, occ: OccupancyGrid, batch: DistillBatch,

@@ -67,6 +67,9 @@ bad = sorted(m for m in sys.modules
              or m == "nerf_texture_tpu" or m.startswith("nerf_texture_tpu."))
 print(len(names), "modules")
 assert not bad, bad
+par = {n for n in names if n.startswith("nerf_texture_tpu_torch.parallel.")}
+assert par == {"nerf_texture_tpu_torch.parallel." + m for m in
+               ("distributed", "eval", "sharding", "train")}, par
 """
 
 
