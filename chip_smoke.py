@@ -26,8 +26,9 @@ of JPEG frames and ``main_nerf_torch.py --bound 2 --dt_gamma 1/128``.
 After the NGP phases, the per-corner hash grid with the NGP's learned
 background sphere, an importance-sampled frame, Morton codes and
 ``packbits``.  Beside the viewer's scenes, the capture-to-scene path
-(image formats, ``data.prepare``).  Phases, run in the order 1-6, 14, 7,
-8, 17, 9, 10, then 16's viewer, 11-13, 15 and 16 (with 18) at once:
+(image formats, ``data.prepare``), the scribble segmenter and GrabCut's
+max-flow kernel.  Phases, run in the order 1-6, 14, 7,
+8, 17, 9, 10, then 16's viewer, 11-13, 15 and 16 (with 18-20) at once:
 after phase 10 the CLIs of phases 13 and 15 start as subprocesses and
 the rest of phases 15 and 16 as worker processes
 (``chip_smoke.py --worker relight`` and ``--worker viewer``), all on the
@@ -38,8 +39,9 @@ exit and no result line, and stops every process it started:
 
   1. device:  a CUDA card is required (there is no CPU path); prints the
               card's name and power limit as nvidia-smi gives them;
-  2. build:   builds the selection kernels from csrc/ (nvcc, sm_90a) and
-              prints ptxas's register and spill lines;
+  2. build:   builds the selection kernels and the max-flow kernel from
+              csrc/ (one nvcc a source, at once; sm_90a) and prints
+              ptxas's register and spill lines;
   3. kernel:  proxy_select_cdf vs its plain PyTorch version on the card,
               at the serving path's shape [16384, 24] cap 4 and at
               [8192, 16] cap 5, with degenerate spans, empty rays and
@@ -254,6 +256,26 @@ exit and no result line, and stops every process it started:
               to 4 cards.  Logs in build/parallel/; the times
               of ranks sharing one card are gloo traffic through the
               host, not a multi-GPU speed.
+ 20. segment: the foreground masks, after phase 19 in the viewer
+              worker: 8 frames of the synthetic sphere at 1920x1080 over a
+              dark background (``MaskSession``'s work_scale 2: every cut
+              960x540), the JAX test's strokes scaled to the frame,
+              ``segment(0)``, ``propagate_all(0)`` and a corrective
+              ``segment(1)`` -- IoU with the alpha > 0.7 on the keyframe,
+              > 0.6 on the others, seconds a call by stage (resize, flow,
+              k-means, assign / learn / graph, cut), the max-flow kernel's
+              launches,
+              sweeps and global relabels; the kernel against its plain
+              version on segment(0)'s five graphs and on one hard 960x540
+              graph (a textured background: hundreds of sweeps, many
+              global relabels) -- the cut on 99.99% of the pixels, the
+              energy within 1e-9, two runs bit for bit -- each cut's device
+              ms (CUDA events, and the kernels' busy time from
+              torch.profiler) beside its host wall and its bounds; the
+              scribble UI on 127.0.0.1
+              (info, stroke, segment, /frame, save); ``apply_masks`` on
+              phase 18's capture frames and ``colmap_to_transforms`` on the
+              masked images.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -261,7 +283,9 @@ line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
 texture files to build/texture/, the surface files to build/surfaces/,
 the CLIs' scene and workspace to build/cli/, phase 15's sky and CLI
 workspaces to build/relight/, phase 16's files to build/viewer/.
-``--only entry_points`` runs phases 1, 2 and 13 alone, ``--only relight``
+``--only segment`` runs phases 1, 2, 13's scene writer, 18's capture
+frames and 20 (its files to build/segment/); ``--only entry_points`` runs
+phases 1, 2 and 13 alone, ``--only relight``
 phases 1, 2 and 15 in this process (with an SH arm of its own for the
 imports, and the CLIs on a scene and template written for them), ``--only
 viewer`` phases 1, 2 and 16 in this process (the viewer on a curved field
@@ -283,6 +307,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -3462,6 +3487,370 @@ def prepare_phase(dev, card: str) -> None:
           f"({card})")
 
 
+# the foreground masks (phase 20): SEGMENT_FRAMES frames of the synthetic
+# sphere at 1920x1080 over a dark background (as tests/test_segmenter.py
+# composites them), so that MaskSession's work_scale is exactly 2 and
+# every cut is 960x540; the scripted strokes of that test scaled to the
+# frame, segment(0), propagate_all(0) and a corrective segment(1), each
+# mask held to the alpha at the JAX test's IoU bounds; the max-flow
+# kernel against its plain version on segment(0)'s five graphs and on
+# one hard graph of the same size (the cut on MAXFLOW_MATCH of the
+# pixels, the energy within MAXFLOW_ENERGY_RTOL, two kernel runs bit for
+# bit); the scribble UI on 127.0.0.1; and apply_masks on phase 18's
+# capture frames, then colmap_to_transforms on the masked images.
+# A cut's bound (bound_ms): the graph read once and the cut written once
+# (8 capacities and the weight as float64, a byte of result: 73 bytes a
+# node) at the H100's 3.35 TB/s.  Its sweep bound (sweep_bound_ms): the
+# state a sweep must read and write once (8 residuals, excess and sink
+# residual as float64, the height as int32: 2 x 84 bytes a node) times
+# the sweeps that ran, plus a read of the residuals and heights and a
+# write of the heights (80 bytes a node) per global relabel.
+SEGMENT_DIR = os.path.join("build", "segment")
+SEGMENT_FRAMES, SEGMENT_H, SEGMENT_W = 8, 1080, 1920
+SEGMENT_IOU_KEY, SEGMENT_IOU_PROP = 0.7, 0.6
+MAXFLOW_MATCH, MAXFLOW_ENERGY_RTOL = 0.9999, 1e-9
+MAXFLOW_IO_BYTES = 8 * 8 + 8 + 1
+MAXFLOW_SWEEP_BYTES, MAXFLOW_RELABEL_BYTES = 168, 80
+HBM_BYTES_PER_S = 3.35e12
+# the hard graph: N-links over a random texture, net weights from a smooth
+# field (amplitude 30, period 128 nodes) plus noise (sigma 10), the left
+# column hard background; 471 sweeps and 16 global relabels on the CPU
+HARD_PERIOD, HARD_AMPLITUDE, HARD_NOISE, HARD_SEED = 128, 30.0, 10.0, 1
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a & b).sum() / max(1, (a | b).sum()))
+
+
+def segment_frames(frames: str) -> list:
+    """Writes the phase's frames; returns their alpha masks."""
+    from nerf_texture_tpu_torch.data.images import write_png
+    from nerf_texture_tpu_torch.data.synthetic import SyntheticSphereDataset
+
+    ds = SyntheticSphereDataset(n_frames=SEGMENT_FRAMES, H=SEGMENT_H,
+                                W=SEGMENT_W)
+    gts = []
+    for i in range(SEGMENT_FRAMES):
+        img = ds.images[i]
+        rgb = img[..., :3].astype(np.float32)
+        a = img[..., 3:].astype(np.float32) / 255.0
+        write_png(os.path.join(frames, f"{i:04d}.png"),
+                  (rgb * a + 24.0 * (1 - a)).astype(np.uint8))
+        gts.append(a[..., 0] > 0.5)
+    return gts
+
+
+def maxflow_bound_ms(H: int, W: int) -> float:
+    return H * W * MAXFLOW_IO_BYTES / HBM_BYTES_PER_S * 1e3
+
+
+def maxflow_sweep_bound_ms(H: int, W: int, sweeps: int,
+                           relabels: int) -> float:
+    return (H * W * (sweeps * MAXFLOW_SWEEP_BYTES
+                     + relabels * MAXFLOW_RELABEL_BYTES)
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def hard_graph(H: int, W: int, dev):
+    """(cap [8, H, W], weight [H, W]) float64 on dev: a cut over a
+    textured background that takes hundreds of sweeps."""
+    from nerf_texture_tpu_torch.ops import grabcut as gcm
+
+    rng = np.random.default_rng(HARD_SEED)
+    img = torch.from_numpy(rng.integers(0, 256, (H, W, 3)).astype(np.uint8))
+    yy, xx = np.mgrid[0:H, 0:W]
+    w = (HARD_AMPLITUDE * np.sin(2 * np.pi * xx / HARD_PERIOD)
+         * np.sin(2 * np.pi * yy / HARD_PERIOD)
+         + rng.normal(0, HARD_NOISE, (H, W)))
+    w[:, :1] = -gcm.LAMBDA
+    return (gcm.n_weights(img, gcm.calc_beta(img)).to(dev),
+            torch.from_numpy(w).to(dev))
+
+
+def cut_against_plain(cap, weight, label: str, card: str) -> dict:
+    """The kernel's cut against its plain version on one graph: the gates,
+    and the kernel's device ms (CUDA events around the call, and the sum
+    of its kernels' durations under torch.profiler) beside its host
+    wall."""
+    from nerf_texture_tpu_torch.ops import maxflow
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    got = maxflow.min_cut(cap, weight)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    k_ms = start.elapsed_time(end)
+    stats = dict(maxflow.min_cut.last_stats)
+    l0 = maxflow.min_cut.cuda_launches
+    again = maxflow.min_cut(cap, weight)
+    cuda_launches = maxflow.min_cut.cuda_launches - l0
+    try:
+        # a measurement, not a gate: a profiler that sees no kernel (this
+        # runs in a worker beside other processes) leaves it unmeasured
+        events = kernel_events(lambda: maxflow.min_cut(cap, weight))
+    except RuntimeError as err:
+        print(f"segment: cut {label}: torch.profiler failed: {err}")
+        events = []
+    busy_ms = sum(d for _, d in events) / 1e3 if events else None
+    t0 = time.perf_counter()
+    ref, ref_stats = maxflow.min_cut_reference(cap, weight)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    e_k = maxflow.cut_energy(cap, weight, got)
+    e_p = maxflow.cut_energy(cap, weight, ref)
+    H, W = weight.shape
+    r = {"graph": label, "ms": k_ms, "busy_ms": busy_ms,
+         "wall_ms": wall_ms, "plain_ms": p_ms,
+         "match": float((got == ref).float().mean()),
+         "energy_err": abs(e_k - e_p), "energy": e_p,
+         "bitwise": bool(torch.equal(got, again)),
+         "bound_ms": maxflow_bound_ms(H, W),
+         "sweep_bound_ms": maxflow_sweep_bound_ms(H, W, stats["sweeps"],
+                                                  stats["relabels"]),
+         "cuda_launches": cuda_launches, "profiled_kernels": len(events),
+         **stats, "plain_sweeps": ref_stats["sweeps"],
+         "plain_relabels": ref_stats["relabels"]}
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms"
+    print(f"segment: cut {label} {H}x{W}: kernel {k_ms:.3f} ms on the "
+          f"device (CUDA events; kernels busy {busy} in "
+          f"{len(events)} kernels, torch.profiler; host wall "
+          f"{wall_ms:.3f} ms), {r['sweeps']} sweeps, {r['relabels']} global "
+          f"relabels, {cuda_launches} CUDA launches; bound {r['bound_ms']:.4f}"
+          f" ms (the graph once), sweep bound {r['sweep_bound_ms']:.3f} ms; "
+          f"plain version {p_ms:.2f} ms ({r['plain_sweeps']} sweeps, "
+          f"{r['plain_relabels']} relabels); cut equal on {r['match']:.6f} "
+          f"of the pixels, energy {e_p:.6f} differs by "
+          f"{r['energy_err']:.3g}; two kernel runs "
+          f"{'equal' if r['bitwise'] else 'DIFFER'} ({card})")
+    check(r["match"] >= MAXFLOW_MATCH and r["bitwise"]
+          and r["energy_err"] <= MAXFLOW_ENERGY_RTOL * abs(e_p)
+          and stats == ref_stats,
+          f"max-flow kernel vs plain on {label}: {r}")
+    return r
+
+
+def segment_ui(session, card: str) -> int:
+    """The scribble UI on 127.0.0.1: info, stroke, segment, /frame, save.
+    Returns the cuts it launched."""
+    import socket
+
+    from nerf_texture_tpu_torch.ops import maxflow
+    from nerf_texture_tpu_torch.viewer.segment import serve_segmenter
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = serve_segmenter(session, host="127.0.0.1", port=port,
+                            block=False)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+
+    def api(body):
+        return json.loads(_http(url + "/api", body)[1])
+
+    try:
+        maxflow.min_cut.launches = 0
+        t0 = time.perf_counter()
+        check(api({"op": "info"})["n"] == SEGMENT_FRAMES,
+              "segmenter UI: info")
+        H, W = session.H, session.W
+        res = api({"op": "stroke", "i": 2, "label": 2,
+                                   "points": [[8, 8], [W - 9, 8]]})
+        check(res["ok"], f"segmenter UI: stroke {res}")
+        res = api({"op": "segment", "i": 2})
+        check(res["ok"], f"segmenter UI: segment {res}")
+        launches = maxflow.min_cut.launches
+        seg_s = time.perf_counter() - t0
+        jpg = _http(url + "/frame?i=2")[1]
+        check(jpg[:2] == b"\xff\xd8", "segmenter UI: /frame is no JPEG")
+        res = api({"op": "save"})
+        check(res["ok"] and res["saved"] == SEGMENT_FRAMES,
+              f"segmenter UI: save {res}")
+        print(f"segment: the UI on 127.0.0.1: info, stroke, segment "
+              f"({seg_s:.2f} s, {launches} cuts), /frame ({len(jpg)} bytes "
+              f"of JPEG), save ({res['saved']} frames) ({card})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return launches
+
+
+def capture_masks(card: str) -> int:
+    """apply_masks on phase 18's capture frames, colmap_to_transforms on
+    the masked images; returns the cuts it launched."""
+    import shutil
+
+    from nerf_texture_tpu_torch.data import prepare
+    from nerf_texture_tpu_torch.data.images import read_image
+    from nerf_texture_tpu_torch.ops import maxflow
+
+    root = os.path.join(PREPARE_DIR, "capture")
+    masked = os.path.join(SEGMENT_DIR, "capture", "images")
+    shutil.rmtree(os.path.dirname(masked), ignore_errors=True)
+    maxflow.min_cut.launches = 0
+    t0 = time.perf_counter()
+    prepare.apply_masks(os.path.join(root, "images"), masked)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    launches = maxflow.min_cut.launches
+    names = sorted(os.listdir(masked))
+    ious = []
+    for name in names:
+        rgba = read_image(os.path.join(masked, name))
+        src = read_image(os.path.join(root, "images", name))
+        check(rgba.shape[-1] == 4 and np.array_equal(rgba[..., :3],
+                                                     src[..., :3]),
+              f"apply_masks: {name} is not the frame with an alpha")
+        ious.append(_iou(rgba[..., 3] > 127, src[..., 3] > 127))
+    out = prepare.colmap_to_transforms(
+        os.path.join(root, "text"), masked,
+        os.path.join(SEGMENT_DIR, "capture", "transforms.json"))
+    check(all(os.path.basename(f["file_path"]) in names
+              for f in out["frames"]) and len(out["frames"]) == len(names),
+          "colmap_to_transforms on the masked images")
+    print(f"segment: apply_masks on phase 18's {len(names)} frames in "
+          f"{mask_s:.2f} s ({launches} cuts), alpha IoU with the scene's "
+          f"alpha min {min(ious):.4f} median {np.median(ious):.4f}; "
+          f"colmap_to_transforms read {len(out['frames'])} masked frames "
+          f"({card})")
+    check(min(ious) > SEGMENT_IOU_PROP, f"apply_masks IoU {min(ious)}")
+    return launches
+
+
+def segment_phase(dev, card: str) -> dict:
+    """Phase 20: the scribble session at 1920x1080 (cuts at 960x540), the
+    kernel against its plain version, the UI and apply_masks.  Returns the
+    max-flow kernel's entry for the kernels line."""
+    import shutil
+
+    from nerf_texture_tpu_torch.data.segmenter import MaskSession
+    from nerf_texture_tpu_torch.ops import grabcut as gcm
+    from nerf_texture_tpu_torch.ops import maxflow
+
+    t_phase = time.perf_counter()
+    root = os.path.join(SEGMENT_DIR, "scene")
+    frames = os.path.join(root, "frames")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(frames)
+    gts = segment_frames(frames)
+    s = MaskSession(frames, device=dev)
+    check(s.work_scale == 2.0, f"work_scale {s.work_scale}, not 2")
+    ys, xs = np.nonzero(gts[0])
+    cy, cx = int(ys.mean()), int(xs.mean())
+    H, W = s.H, s.W
+    # the JAX test's strokes, scaled from its 96x96 frames
+    k = H / 96
+    s.add_stroke(0, [[cx - int(10 * k), cy], [cx + int(10 * k), cy]], 1,
+                 radius=int(3 * k))
+    s.add_stroke(0, [[2, 2], [W - 3, 2]], 2, radius=int(2 * k))
+    s.add_stroke(0, [[2, H - 3], [W - 3, H - 3]], 2, radius=int(2 * k))
+    calls = []
+
+    def timed(name, fn):
+        before = dict(s.timings)
+        l0, sw0, r0 = (maxflow.min_cut.launches, maxflow.min_cut.sweeps,
+                       maxflow.min_cut.relabels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        calls.append({"call": name, "s": time.perf_counter() - t0,
+                      "cuts": maxflow.min_cut.launches - l0,
+                      "sweeps": maxflow.min_cut.sweeps - sw0,
+                      "relabels": maxflow.min_cut.relabels - r0,
+                      **{key: s.timings.get(key, 0.0) - before.get(key, 0.0)
+                         for key in ("resize", "flow", "kmeans", "gmm",
+                                     "cut")}})
+        return out
+
+    graphs = []
+    real_cut = gcm.min_cut
+
+    def recording(cap, weight):
+        graphs.append((cap.clone(), weight.clone()))
+        return real_cut(cap, weight)
+
+    propagate = s.propagate
+    s.propagate = lambda a, b: timed(f"propagate({a}, {b})",
+                                     lambda: propagate(a, b))
+    maxflow.min_cut.launches = 0
+    gcm.min_cut = recording
+    try:
+        timed("segment(0)", lambda: s.segment(0))
+    finally:
+        gcm.min_cut = real_cut
+    s.propagate_all(0)
+    s.add_stroke(1, [[2, 2], [int(40 * k), 2]], 2, radius=int(2 * k))
+    timed("segment(1)", lambda: s.segment(1))
+    launches = maxflow.min_cut.launches
+    del s.propagate
+    for c in calls:
+        print(f"segment: {c['call']}: {c['s']:.3f} s (resize {c['resize']:.3f}"
+              f", flow {c['flow']:.3f}, k-means {c['kmeans']:.3f}, "
+              f"assign / learn / graph {c['gmm']:.3f}, cut {c['cut']:.3f}); "
+              f"{c['cuts']} cuts, "
+              f"{c['sweeps']} sweeps, {c['relabels']} global relabels "
+              f"({card})")
+    ious = [_iou(s.masks[i], gts[i]) for i in range(SEGMENT_FRAMES)]
+    print(f"segment: IoU with the alpha: keyframe {ious[0]:.4f}, propagated "
+          f"{', '.join(f'{v:.4f}' for v in ious[1:])} (gates > "
+          f"{SEGMENT_IOU_KEY}, > {SEGMENT_IOU_PROP}); {launches} cuts "
+          f"(max-flow kernel calls) on the session's path ({card})")
+    check(ious[0] > SEGMENT_IOU_KEY and min(ious[1:]) > SEGMENT_IOU_PROP,
+          f"segmentation IoU {ious}")
+    check(launches == sum(c["cuts"] for c in calls) and launches > 0,
+          f"{launches} max-flow launches")
+    saved = s.save(os.path.join(root, "masks"),
+                   composite_dir=os.path.join(root, "images_masked"))
+    check(saved == SEGMENT_FRAMES, f"save wrote {saved} frames")
+
+    # -- the kernel against its plain version: segment(0)'s graphs, a hard one
+    check(len(graphs) == 5, f"segment(0) ran {len(graphs)} cuts, not 5")
+    rows = [cut_against_plain(cap, weight, f"segment(0) {i + 1}", card)
+            for i, (cap, weight) in enumerate(graphs)]
+    hard = cut_against_plain(*hard_graph(*graphs[0][1].shape, dev), "hard",
+                             card)
+    ui = segment_ui(s, card)
+    capture = capture_masks(card)
+    print(f"segment: phase 20 {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    def med(key):
+        vals = [r[key] for r in rows if r[key] is not None]
+        return float(np.median(vals)) if vals else None
+
+    keys = ("ms", "busy_ms", "wall_ms", "plain_ms", "bound_ms",
+            "sweep_bound_ms", "sweeps", "relabels", "cuda_launches", "match")
+    return {"name": "maxflow_grid", "route": "cuda",
+            "source": "nerf_texture_tpu_torch/csrc/maxflow.cu",
+            "replaces": "cv2.grabCut's GCGraph::maxFlow (host OpenCV, no "
+                        "TPU kernel), via nerf_texture_tpu/data/"
+                        "segmenter.py:103 and data/prepare.py:76",
+            "launches": launches + ui + capture,
+            "launches_are": "cuts: calls of the wrapper, each one entry "
+                            "point that queues cuda_launches_per_cut "
+                            "CUDA launches",
+            "launches_by_path": {"mask_session": launches,
+                                 "segmenter_ui": ui,
+                                 "apply_masks": capture},
+            "cuda_launches_per_cut": med("cuda_launches"),
+            "max_abs_err": max(r["energy_err"] for r in rows + [hard]),
+            "ms": med("ms"), "plain_ms": med("plain_ms"),
+            "bound_ms": med("bound_ms"), "bound_by": "bytes",
+            "library_ms": None, "busy_ms": med("busy_ms"),
+            "wall_ms": med("wall_ms"),
+            "sweep_bound_ms": med("sweep_bound_ms"),
+            "shape": f"{graphs[0][1].shape[0]}x{graphs[0][1].shape[1]} "
+                     f"grid, 8-connected, float64",
+            "per_cut": [{key: r[key] for key in keys} for r in rows],
+            "hard_cut": {key: hard[key] for key in keys},
+            "per_call": calls, "iou": ious}
+
+
 def scenes_phase(dev, card: str, plain_iters: int,
                  prepare: bool = False) -> dict:
     """Phase 16 but the viewer in the smoke's process: the JPEG scene, the
@@ -3475,15 +3864,16 @@ def scenes_phase(dev, card: str, plain_iters: int,
     # the bound-2 CLI beside --gui, which waits for phase 13's workspace
     b2 = Background(lambda: bound2_cli(dev, card,
                                        os.path.join(CLI_DIR, "scene")))
-    par = {}
+    par = seg = {}
     if prepare:
         prepare_phase(dev, card)
         t1 = time.perf_counter()
         par = parallel_phase(dev, card)
         print(f"parallel: phase 19 in the viewer worker "
               f"{time.perf_counter() - t1:.1f} s ({card})")
+        seg = segment_phase(dev, card)
     gui_cli(card, os.path.join(CLI_DIR, "ws_plain"), plain_iters)
-    res = dict(b2.result(), parallel=par)
+    res = dict(b2.result(), parallel=par, segment=seg)
     print(f"scenes: {time.perf_counter() - t0:.1f} s ({card})")
     return res
 
@@ -3544,7 +3934,8 @@ def scenes_from_worker(worker: Background, ngp_psnr: float,
           f"{B2_SLACK} dB) ({card})")
     check(res["psnr"] >= ngp_psnr - B2_SLACK, f"bound-2 PSNR {res['psnr']} "
           f"dB against the NGP CLI's {ngp_psnr} dB")
-    return res["launches"]["bound2_cli_eval"], res["parallel"]
+    return (res["launches"]["bound2_cli_eval"], res["parallel"],
+            res["segment"])
 
 
 def tree_to(tree, device):
@@ -4793,15 +5184,23 @@ def main() -> int:
     only_background = sys.argv[1:] == ["--only", "background"]
     only_prepare = sys.argv[1:] == ["--only", "prepare"]
     only_parallel = sys.argv[1:] == ["--only", "parallel"]
+    only_segment = sys.argv[1:] == ["--only", "segment"]
     as_worker = sys.argv[1:] == ["--worker", "relight"]
     as_viewer_worker = sys.argv[1:] == ["--worker", "viewer"]
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build = kernels.build("proxy_select")
-    kernels.load_library("proxy_select")
-    print(f"build: proxy_select.cu {build.path.name} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {build.seconds:.2f} s)")
+    # one nvcc a source, started together
+    names = ("proxy_select", "maxflow")
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = dict(zip(names, pool.map(kernels.build, names)))
+    for name in names:
+        kernels.load_library(name)
+    build = builds["proxy_select"]
+    print(f"build: proxy_select.cu {build.path.name} and maxflow.cu "
+          f"{builds['maxflow'].path.name} in {time.perf_counter() - t0:.2f} "
+          f"s (nvcc {build.seconds:.2f} s and "
+          f"{builds['maxflow'].seconds:.2f} s, at once)")
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         build.log)
     for line in build.log.splitlines():
@@ -4814,6 +5213,14 @@ def main() -> int:
               f"for 8 kernels")
         check(all(a == "0" and b == "0" for a, b in spills),
               f"a selection kernel spills registers: {spills}")
+    mf_log = builds["maxflow"].log
+    mf_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", mf_log)
+    for line in mf_log.splitlines():
+        if "registers" in line:
+            print(f"  ptxas (maxflow): {line.strip()}")
+    check(all(a == "0" and b == "0" for a, b in mf_spills),
+          f"a max-flow kernel spills registers: {mf_spills}")
 
     if only_entry:
         # a shorter run while working on phase 13: the device, the build
@@ -4857,6 +5264,16 @@ def main() -> int:
         parallel_phase(dev, card)
         print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 19 "
               f"only, {time.perf_counter() - t0:.1f} s ({card})")
+        return 0
+    if only_segment:
+        # a shorter run while working on phase 20: the device, the build,
+        # phase 13's scene (written, no CLI started), phase 18's capture
+        # frames (no training) and phase 20; no result lines
+        start_clis(relight=False, entry=False)
+        capture_round_trip(card)
+        segment_phase(dev, card)
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 20 "
+              f"only ({card})")
         return 0
     if only_prepare:
         # a shorter run while working on phase 18: the device, the build,
@@ -5111,8 +5528,8 @@ def main() -> int:
     lap("15")
 
     # -- 16. the JPEG scene, bound 2 and --gui (the worker) -------------------
-    (b2_topk, b2_cdf), par = scenes_from_worker(viewer_worker, ngp_psnr,
-                                                card)
+    (b2_topk, b2_cdf), par, maxflow_line = scenes_from_worker(
+        viewer_worker, ngp_psnr, card)
     lap("16")
 
     print("smoke: phase walls: " + ", ".join(
@@ -5170,7 +5587,8 @@ def main() -> int:
                      "texture_two_round": texture["texture_two_round"],
                      **entry, **relight_topk, "bound2_cli_eval": b2_topk,
                      **par.get("topk", {})},
-                    topk_err)]}))
+                    topk_err),
+        {**maxflow_line, "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -196,9 +196,15 @@ def read_png(path: str) -> np.ndarray:
 
 
 def write_png(path: str, img: np.ndarray):
-    """Write img [H, W, 3] (or [H, W, 4]) uint8 as an 8-bit RGB (RGBA)
-    PNG: one IDAT chunk, filter type 0 on every row."""
+    """Write img [H, W] (or [H, W, 3], [H, W, 4]) uint8 as an 8-bit gray
+    (RGB, RGBA) PNG: one IDAT chunk, filter type 0 on every row."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
     h, w, c = img.shape
+    if img.dtype != np.uint8 or c not in (1, 3, 4):
+        raise ValueError(f"write_png: uint8 [H, W], [H, W, 3] or [H, W, 4] "
+                         f"only, got {img.dtype} {img.shape}")
     raw = b"".join(b"\x00" + row.tobytes()
                    for row in np.ascontiguousarray(img, np.uint8))
 
@@ -206,7 +212,7 @@ def write_png(path: str, img: np.ndarray):
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE + chunk(b"IHDR", ihdr)

@@ -1,5 +1,5 @@
-"""Data preparation: video -> frames -> COLMAP -> transforms.json (port of
-``nerf_texture_tpu/data/prepare.py``).
+"""Data preparation: video -> frames -> masks -> COLMAP -> transforms.json
+(port of ``nerf_texture_tpu/data/prepare.py``).
 
 Host code, as in the JAX package: ffmpeg frame extraction, blurry-frame
 removal by the variance of the Laplacian, the COLMAP subprocess drivers
@@ -9,9 +9,10 @@ image library is needed: frames are read by ``data.images.read_image``
 Laplacian are computed in integer numpy, so ``laplacian_variance``
 equals the JAX function's bit for bit.  External binaries (ffmpeg,
 colmap) are optional: each driver raises a ``RuntimeError`` naming the
-missing one.  The foreground masks (GrabCut and the scribble segmenter)
-are not ported: they raise ``NotImplementedError`` citing ROADMAP Queue
-1, item 11.7c.
+missing one.  The foreground masks are GrabCut (``ops/grabcut.py``: GMMs
+in PyTorch on the device, each cut the max-flow kernel on the card) or,
+with ``interactive=True``, the scribble segmenter
+(``data/segmenter.py`` served by ``viewer/segment.py``).
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ import subprocess
 
 import numpy as np
 
-from .images import read_image
+import torch
 
-_MASKS_TODO = ("foreground masks (GrabCut, the scribble segmenter) are not "
-               "ported (ROADMAP Queue 1, item 11.7c)")
+from ..ops.grabcut import GC_INIT_WITH_RECT, foreground, grabcut
+from ..ops.imgproc import gray15
+from ..ops.kmeans import CvRNG
+from .images import read_image, write_png
 
 
 def extract_frames(video_path: str, out_dir: str, fps: int = 2) -> int:
@@ -53,9 +56,7 @@ def rgb_to_gray(image: np.ndarray) -> np.ndarray:
         raise ValueError(f"RGB2GRAY of {image.dtype} is not mirrored "
                          f"(uint8 and uint16 are)")
     x = image.astype(np.int64)
-    y = (x[..., 0] * 9798 + x[..., 1] * 19235 + x[..., 2] * 3735
-         + (1 << 14)) >> 15
-    return y.astype(image.dtype)
+    return gray15(x[..., 0], x[..., 1], x[..., 2]).astype(image.dtype)
 
 
 def laplacian(gray: np.ndarray) -> np.ndarray:
@@ -98,15 +99,37 @@ def remove_blurry_frames(frame_dir: str, keep_ratio: float = 0.8) -> int:
     return removed
 
 
-def segment_foreground(image: np.ndarray, rect=None,
-                       iterations: int = 5) -> np.ndarray:
-    """GrabCut foreground mask: not ported (item 11.7c)."""
-    raise NotImplementedError(f"segment_foreground: {_MASKS_TODO}")
+def segment_foreground(image: np.ndarray, rect=None, iterations: int = 5,
+                       *, device="cuda", rng: CvRNG | None = None
+                       ) -> np.ndarray:
+    """Automatic foreground mask: GrabCut initialised with ``rect`` (the
+    central 80% by default) on the image's BGR channels, as the JAX
+    function feeds ``cv2.grabCut``.  ``rng`` is the k-means generator
+    (advanced in place; a fresh OpenCV thread's state by default).
+    Returns a uint8 alpha mask (0 / 255)."""
+    h, w = image.shape[:2]
+    if rect is None:
+        rect = (w // 10, h // 10, w * 8 // 10, h * 8 // 10)
+    bgr = torch.from_numpy(np.ascontiguousarray(image[..., :3][..., ::-1]))
+    mask, _, _ = grabcut(bgr.to(device), None, rect, None, None, iterations,
+                         GC_INIT_WITH_RECT,
+                         rng=rng if rng is not None else CvRNG())
+    return np.where(foreground(mask).cpu().numpy(), 255, 0).astype(np.uint8)
 
 
-def apply_masks(frame_dir: str, out_dir: str):
-    """RGBA frames with GrabCut alpha: not ported (item 11.7c)."""
-    raise NotImplementedError(f"apply_masks: {_MASKS_TODO}")
+def apply_masks(frame_dir: str, out_dir: str, *, device="cuda"):
+    """Write RGBA frames with GrabCut alpha (``segment_foreground``), the
+    frames in name order drawing from one generator in a fresh OpenCV
+    thread's state, as the JAX function's calls draw from its thread's."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = CvRNG()
+    for f in sorted(os.listdir(frame_dir)):
+        if not f.lower().endswith((".png", ".jpg", ".jpeg")):
+            continue
+        img = read_image(os.path.join(frame_dir, f))[..., :3]
+        alpha = segment_foreground(img, device=device, rng=rng)
+        write_png(os.path.join(out_dir, os.path.splitext(f)[0] + ".png"),
+                  np.concatenate([img, alpha[..., None]], -1))
 
 
 def run_colmap(image_dir: str, workspace: str,
@@ -208,19 +231,38 @@ def colmap_to_transforms(text_dir: str, image_dir: str, out_path: str,
 
 def prepare_scene(video_path: str, scene_dir: str, *, fps: int = 2,
                   keep_ratio: float = 0.8, mask: bool = True,
-                  interactive: bool = False, port: int = 7870):
+                  interactive: bool = False, port: int = 7870,
+                  device="cuda"):
     """The capture pipeline: frames from the video, the blurry ones
-    removed, COLMAP on the rest, then ``scene_dir/transforms.json``
-    (returned).  Only ``mask=False, interactive=False`` is ported: the
-    masks (GrabCut, or the scribble segmenter served on ``port``) raise
-    before anything runs (item 11.7c)."""
-    if interactive or mask:
-        raise NotImplementedError(
-            f"prepare_scene(mask={mask}, interactive={interactive}): "
-            f"{_MASKS_TODO}; pass mask=False")
+    removed, masks, COLMAP on the (masked) frames, then
+    ``scene_dir/transforms.json`` (returned).
+
+    ``interactive=True`` serves the browser scribble segmenter on ``port``
+    and blocks until Ctrl-C; if the user saved masks (``images_masked/``)
+    COLMAP runs on them.  ``mask=True`` without ``interactive`` writes
+    GrabCut-masked RGBA frames to ``images/``.  GrabCut runs on
+    ``device``."""
     frames_dir = os.path.join(scene_dir, "images_raw")
     extract_frames(video_path, frames_dir, fps=fps)
     remove_blurry_frames(frames_dir, keep_ratio=keep_ratio)
-    text_dir = run_colmap(frames_dir, scene_dir)
-    return colmap_to_transforms(text_dir, frames_dir,
+    image_dir = frames_dir
+    if interactive:
+        from ..viewer.segment import serve_segmenter
+        from .segmenter import MaskSession
+
+        session = MaskSession(frames_dir, device=device)
+        print("[prepare] scribble the object, then 'save masks' and "
+              "Ctrl-C to continue")
+        try:
+            serve_segmenter(session, port=port)
+        except KeyboardInterrupt:
+            pass
+        masked = os.path.join(scene_dir, "images_masked")
+        if os.path.isdir(masked) and os.listdir(masked):
+            image_dir = masked
+    elif mask:
+        image_dir = os.path.join(scene_dir, "images")
+        apply_masks(frames_dir, image_dir, device=device)
+    text_dir = run_colmap(image_dir, scene_dir)
+    return colmap_to_transforms(text_dir, image_dir,
                                 os.path.join(scene_dir, "transforms.json"))

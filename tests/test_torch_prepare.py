@@ -4,7 +4,8 @@ metric bit for bit against OpenCV (gray conversion, Laplacian, variance),
 the same frames removed, byte-identical ``transforms.json`` files for
 every COLMAP camera model, the same ffmpeg / colmap command lines (through
 stand-in binaries that log them), the same raises without the binaries,
-and the masks that the port leaves to ROADMAP item 11.7c.
+and the masked scenes (GrabCut, and the scribble segmenter's saved masks)
+of ``prepare_scene(mask=True)`` and ``interactive=True``.
 """
 
 import os
@@ -21,6 +22,7 @@ from PIL import Image
 
 from nerf_texture_tpu.data import prepare as jprep
 from nerf_texture_tpu_torch.data import prepare
+from nerf_texture_tpu_torch.data.images import read_image
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -269,15 +271,77 @@ def test_drivers_raise_without_their_binaries(tmp_path, monkeypatch):
             mod.run_colmap(str(tmp_path / "f"), str(tmp_path / "ws"))
 
 
-def test_masks_raise_citing_their_roadmap_item(tmp_path):
-    """The foreground masks (GrabCut, the scribble segmenter) are item
-    11.7c: prepare_scene's default mask=True and interactive=True raise
-    before anything runs, as do segment_foreground and apply_masks."""
-    for kw in ({}, {"mask": True}, {"mask": False, "interactive": True}):
-        with pytest.raises(NotImplementedError, match="11.7c"):
-            prepare.prepare_scene("v.mp4", str(tmp_path / "s"), **kw)
-    assert not (tmp_path / "s").exists()
-    with pytest.raises(NotImplementedError, match="11.7c"):
-        prepare.segment_foreground(np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="11.7c"):
-        prepare.apply_masks(str(tmp_path), str(tmp_path / "m"))
+def _scene_outputs(root):
+    """transforms.json's bytes and every image the scene's masks wrote,
+    decoded."""
+    out = {"transforms": (root / "transforms.json").read_bytes()}
+    for sub in ("images", "images_masked", "masks"):
+        if (root / sub).is_dir():
+            out[sub] = {n: read_image(str(root / sub / n))
+                        for n in sorted(os.listdir(root / sub))}
+    return out
+
+
+def _same_scene(port, jax):
+    assert port.keys() == jax.keys()
+    assert port["transforms"] == jax["transforms"]
+    for sub in set(port) - {"transforms"}:
+        assert port[sub].keys() == jax[sub].keys() and port[sub], sub
+        for name, a in jax[sub].items():
+            b = port[sub][name]
+            assert a.shape == b.shape, (sub, name)
+            assert (a == b).mean() >= 0.995, (sub, name)
+
+
+def test_prepare_scene_with_masks_matches_jax(fake_binaries, monkeypatch):
+    """prepare_scene's default (mask=True): GrabCut-masked RGBA frames in
+    images/ (each >= 99.5% of the JAX file's values) and the same
+    transforms.json, on the stand-in ffmpeg / colmap."""
+    tmp = fake_binaries
+    runs = {}
+    for name, mod, kw in (("jax", jprep, {}), ("port", prepare,
+                                               {"device": "cpu"})):
+        _log(tmp, monkeypatch, name)
+        root = tmp / name / "scene"
+        cv2.setRNGSeed(0)
+        out = mod.prepare_scene("capture.mp4", str(root), fps=3,
+                                keep_ratio=0.6, **kw)
+        assert out["frames"][0]["file_path"].startswith("images" + os.sep)
+        runs[name] = _scene_outputs(root)
+    assert len(runs["port"]["images"]) == 6
+    assert all(v.shape[-1] == 4 for v in runs["port"]["images"].values())
+    _same_scene(runs["port"], runs["jax"])
+
+
+def test_prepare_scene_interactive_matches_jax(fake_binaries, monkeypatch):
+    """interactive=True: the scribble server (here a stand-in that scripts
+    a stroke, a segment, a propagation and a save, then stops as Ctrl-C
+    does) writes images_masked/, which COLMAP then reads."""
+    from nerf_texture_tpu.viewer import segment as jseg
+    from nerf_texture_tpu_torch.viewer import segment as pseg
+
+    def scripted(session, host="0.0.0.0", port=7870, block=True):
+        session.add_stroke(0, [[20, 18], [30, 22]], 1, radius=3)
+        session.add_stroke(0, [[1, 1], [50, 1]], 2, radius=2)
+        session.segment(0)
+        session.propagate_all(0)
+        root = os.path.dirname(os.path.abspath(session.frame_dir))
+        session.save(os.path.join(root, "masks"),
+                     composite_dir=os.path.join(root, "images_masked"))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(jseg, "serve_segmenter", scripted)
+    monkeypatch.setattr(pseg, "serve_segmenter", scripted)
+    tmp = fake_binaries
+    runs = {}
+    for name, mod, kw in (("jax", jprep, {}), ("port", prepare,
+                                               {"device": "cpu"})):
+        _log(tmp, monkeypatch, name)
+        root = tmp / name / "scene"
+        cv2.setRNGSeed(0)
+        out = mod.prepare_scene("capture.mp4", str(root), fps=3,
+                                keep_ratio=0.6, interactive=True, **kw)
+        assert out["frames"][0]["file_path"].startswith("images_masked")
+        runs[name] = _scene_outputs(root)
+    assert len(runs["port"]["images_masked"]) == 6
+    _same_scene(runs["port"], runs["jax"])
