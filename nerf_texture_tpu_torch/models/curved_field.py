@@ -18,11 +18,10 @@ At inference every path takes the viewer's options: ``light_import``
 model), ``euler_rot`` (a [3, 3] rotation of the view directions and
 normals the light model sees) and ``visual_mode`` (RGB, or the
 diagnostics UV, Tan, Btan, Fea, Nc, Nf, Grad and the display normal;
-``forward_baked`` is RGB only).
-
-Not ported (raising ``NotImplementedError`` naming its ROADMAP item): the
-deferred shading of the baked atlas (``forward_baked_s1`` / ``_s2``,
-item 12).
+``forward_baked`` is RGB only).  ``forward_baked_s1`` and
+``forward_baked_s2`` split ``forward_baked`` for deferred shading: sigma
+and a flat feature row a sample, then the shading once a ray on the
+composited row.
 """
 
 from __future__ import annotations
@@ -446,6 +445,21 @@ def forward_baked(params, bake, x: torch.Tensor, d: torch.Tensor,
     tile addressing (``baked.anchor_frames_ext``) or without.  Mode
     'none', RGB: (sigma [N], color [N, 3]), zero outside the shell and
     the baked tiles."""
+    sigma, (x_embed, phi_embed, z_embed, geo_feat, normal_coarse), h_mask = \
+        _baked_embed(params, bake, x, cfg, frames)
+    color = _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat,
+                         frames["tbn"], normal_coarse, d, cfg, rt,
+                         light_visual_mode=light_visual_mode,
+                         euler_rot=euler_rot, light_import=light_import)
+    return (torch.where(h_mask, sigma, 0.0),
+            torch.where(h_mask[..., None], color, 0.0))
+
+
+def _baked_embed(params, bake, x: torch.Tensor, cfg: CurvedFieldConfig,
+                 frames):
+    """The per-sample half of ``forward_baked``: (sigma [N], (x_embed,
+    phi_embed, z_embed, geo_feat, normal_coarse), h_mask [N]), h_mask
+    true inside the shell and the baked tiles."""
     from ..render import baked as baked_mod
 
     fcfg = cfg.field
@@ -459,12 +473,8 @@ def forward_baked(params, bake, x: torch.Tensor, d: torch.Tensor,
                                         torch.cat([x_embed, z_embed], -1))
     h_mask = (torch.abs(h[..., 0]) < fcfg.h_threshold) & frames["hit"] \
         & tile_ok
-    color = _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat,
-                         frames["tbn"], normal_coarse, d, cfg, rt,
-                         light_visual_mode=light_visual_mode,
-                         euler_rot=euler_rot, light_import=light_import)
-    return (torch.where(h_mask, sigma, 0.0),
-            torch.where(h_mask[..., None], color, 0.0))
+    return sigma, (x_embed, phi_embed, z_embed, geo_feat,
+                   normal_coarse), h_mask
 
 
 def _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat, tbn,
@@ -494,6 +504,44 @@ def _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat, tbn,
                            light_visual_mode, light_import=light_import)
 
 
+def forward_baked_s1(params, bake, x: torch.Tensor, cfg: CurvedFieldConfig,
+                     frames):
+    """Deferred baked stage 1 (a sample): (sigma [N], the flat shading
+    feature row [N, F + P + Z + G + 12]) laid out as [x_embed F |
+    phi_embed P | z_embed Z | geo_feat G | tbn 9 | normal_coarse 3] and
+    split again by ``forward_baked_s2``.  Rows and sigmas outside the
+    shell and the baked tiles (``forward_baked``'s h_mask) are zero:
+    their composite weight is zero, and zero rows keep the weighted mean
+    well-conditioned."""
+    sigma, (x_embed, phi_embed, z_embed, geo_feat, normal_coarse), h_mask = \
+        _baked_embed(params, bake, x, cfg, frames)
+    feat = torch.cat([x_embed, phi_embed, z_embed, geo_feat,
+                      frames["tbn"].reshape(-1, 9), normal_coarse], dim=-1)
+    return (torch.where(h_mask, sigma, 0.0),
+            torch.where(h_mask[:, None], feat, 0.0))
+
+
+def forward_baked_s2(params, fbar: torch.Tensor, d: torch.Tensor,
+                     cfg: CurvedFieldConfig, rt: FieldRuntime | None, *,
+                     light_visual_mode: str = "Full", euler_rot=None,
+                     light_import=None):
+    """Deferred baked stage 2 (a ray): ``forward_baked``'s shading of the
+    weight-composited feature row fbar [N, C] (``forward_baked_s1``'s
+    layout; the coarse normal renormalised), once a ray instead of once
+    a survivor."""
+    fcfg = cfg.field
+    F = fcfg.encoder_f_out_dim
+    P = fcfg.normal_cfg.phi_embed_dim if fcfg.pred_normal else 0
+    G = cfg.geo_feat_dim
+    Z = fbar.shape[-1] - F - P - G - 12
+    x_embed, phi_embed, z_embed, geo_feat, tbn, nc = torch.split(
+        fbar, [F, P, Z, G, 9, 3], dim=-1)
+    return _baked_shade(params, x_embed, phi_embed, z_embed, geo_feat,
+                        tbn.reshape(-1, 3, 3), _normalize(nc), d, cfg, rt,
+                        light_visual_mode=light_visual_mode,
+                        euler_rot=euler_rot, light_import=light_import)
+
+
 VISUAL_MODES = ["RGB", "UV", "Grad", "Nc", "Tan", "Btan", "normal", "Fea",
                 "Nf"]
 LIGHT_VISUAL_MODES = ["Full", "Specular", "Diffuse", "Albedo"]
@@ -517,17 +565,3 @@ def regular_loss(params, cfg: CurvedFieldConfig, step=None, *,
                   else (1e2 if step > 2000 else 1e4))
         loss = loss + weight * optimize_camera_loss
     return loss
-
-
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"curved_field.{name} is not ported; ROADMAP Queue 1, item "
-            f"{item}")
-    fn.__name__ = name
-    return fn
-
-
-# deferred shading of the baked atlas (the JAX package's stages 1 and 2)
-forward_baked_s1 = _not_ported("forward_baked_s1", "12")
-forward_baked_s2 = _not_ported("forward_baked_s2", "12")

@@ -51,12 +51,11 @@ def render_image_sharded(field_apply, field_static, params, occ, pose,
     renders one scanline band through the full pipeline; otherwise the
     chunk-split fallback runs.  ``plain_select`` runs the plain
     selections in place of the kernels (see ``render_rays_proxy``).
+    ``deferred_apply``: the field's deferred stage pair (see
+    ``render_image``), which each band's chunks run; the chunk-split
+    fallback ignores it, as the JAX package's does.
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: this rank's live rays, chunks: this rank's chunks)."""
-    if deferred_apply is not None:
-        raise NotImplementedError(
-            "render_image_sharded: deferred shading is not ported (ROADMAP "
-            "Queue 1, item 12)")
     if density is not None and cfg.infer_mode == "proxy" \
             and cfg.cascades == 1:
         if prepass is None:
@@ -65,6 +64,7 @@ def render_image_sharded(field_apply, field_static, params, occ, pose,
                                     prepass, pose, intrinsics, H, W, cfg,
                                     mesh, bg_color=bg_color,
                                     anchor_apply=anchor_apply,
+                                    deferred_apply=deferred_apply,
                                     plain_select=plain_select)
         if out is not None:
             return out
@@ -83,7 +83,8 @@ def _frame_out(frame, H: int, W: int, live: int, chunks: int) -> dict:
 def _render_sharded_bands(field_apply, field_static, params,
                           prepass: PrepassState, pose, intrinsics, H: int,
                           W: int, cfg: RenderConfig, mesh: Mesh, *,
-                          bg_color, anchor_apply, plain_select: bool):
+                          bg_color, anchor_apply, deferred_apply,
+                          plain_select: bool):
     """One band a data rank: band_H = ceil(H / ranks) rounded up to the
     prepass block, so the bands' block rows align with the single-rank
     frame's; the last band may run past the frame (cropped).  None where
@@ -107,6 +108,7 @@ def _render_sharded_bands(field_apply, field_static, params,
         band = render_image(field_apply, field_static, params, prepass, pose,
                             intrinsics, rows, W, cfg, bg_color=bg_color,
                             anchor_apply=anchor_apply,
+                            deferred_apply=deferred_apply,
                             plain_select=plain_select, row0=row0,
                             frame_rows=H)
         local[:rows * W] = torch.cat([band["image"].reshape(-1, 3),

@@ -37,8 +37,12 @@ ray against the occupied AABB and render the hits in chunks through
 viewer's inference crop, intersects the occupied AABB on every path; an
 empty crop renders pure background.
 
-Not ported (raises ``NotImplementedError`` naming its ROADMAP item):
-deferred shading.
+Deferred (per-ray) shading (``RenderConfig.deferred``; SNeRG, arXiv:
+2103.14645) is a branch of the proxy path's tail: with a field's stage
+pair ``deferred_apply`` = (s1, s2), stage 1 gives sigma and a flat
+feature row a survivor, the composite weights average the rows of each
+ray, and stage 2 shades once a ray.  The pool and AABB-hit paths ignore
+it, as the JAX module's do.
 """
 
 from __future__ import annotations
@@ -63,8 +67,9 @@ from .compact import (composite_flat, flat_points, flat_weights,
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Every field of the JAX RenderConfig, so configurations convert;
-    see the JAX module for what each one does.  TPU-only fields
-    (``frame_one_program``, ``proxy_bf16``) are accepted and ignored."""
+    see the JAX module for what each one does.  ``proxy_bf16`` stores the
+    proxy corner table in bf16, as in JAX; ``frame_one_program``, TPU
+    dispatch machinery, is accepted and changes no result."""
 
     bound: float = 1.0
     cascades: int = 1
@@ -291,11 +296,13 @@ def _two_phase(field_fn, sigma_fn, color_fn, xyzs, dirs, frames,
 # proposal-style proxy rendering
 # ---------------------------------------------------------------------------
 
-def density_corner_table(density: torch.Tensor,
-                         grid_size: int) -> torch.Tensor:
+def density_corner_table(density: torch.Tensor, grid_size: int,
+                         bf16: bool = False) -> torch.Tensor:
     """[H^3] (or [cascades, H^3], cascade 0 used) cell-center densities ->
     [H^3, 8] table whose row r holds the 2x2x2 neighbourhood of cell r
-    (edge-clamped at the +1 borders); negative cells clamp to 0."""
+    (edge-clamped at the +1 borders); negative cells clamp to 0.  With
+    ``bf16`` the table is stored in bf16 (``RenderConfig.proxy_bf16``);
+    ``_proxy_sigma`` casts its rows back to f32 after the gather."""
     H = grid_size
     if density.dim() == 2:
         density = density[0]
@@ -307,7 +314,8 @@ def density_corner_table(density: torch.Tensor,
         for iy in (ar, nxt):
             for iz in (ar, nxt):
                 rows.append(d[ix][:, iy][:, :, iz].reshape(-1))
-    return torch.stack(rows, dim=-1)                    # [H^3, 8]
+    out = torch.stack(rows, dim=-1)                     # [H^3, 8]
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 def _proxy_sigma(dens8: torch.Tensor, rays_o: torch.Tensor,
@@ -327,7 +335,8 @@ def _proxy_sigma(dens8: torch.Tensor, rays_o: torch.Tensor,
     by, fy = axis(1)
     bz, fz = axis(2)
     base = (bx * H + by) * H + bz                        # [N, K]
-    rows = dens8[base.reshape(-1)]                       # [N*K, 8]
+    # a bf16 table: cast after the gather
+    rows = dens8[base.reshape(-1)].float()               # [N*K, 8]
     wx = torch.stack([1.0 - fx, fx], -1).reshape(-1, 2)
     wy = torch.stack([1.0 - fy, fy], -1).reshape(-1, 2)
     wz = torch.stack([1.0 - fz, fz], -1).reshape(-1, 2)
@@ -354,7 +363,7 @@ def _proxy_pass(dens8, rays_o, rays_d, t_lo, t_hi, K: int,
 
 def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
                       cfg: RenderConfig, *, bg_color=1.0, anchor_fn=None,
-                      plain_select: bool = False):
+                      deferred_fns=None, plain_select: bool = False):
     """Proposal-style inference over each ray's prepass span [nears,
     fars]: K proxy densities -> ``cap`` survivors -> the field on the
     survivors only -> exact composite.  Rays without a span composite to
@@ -377,7 +386,9 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
 
     ``plain_select`` runs the plain PyTorch selections in place of the
     kernels (to hold them against each other).  ``anchor_fn``: as in
-    ``render_rays``, on the survivors (see ``_proxy_tail``)."""
+    ``render_rays``, on the survivors (see ``_proxy_tail``).
+    ``deferred_fns`` (s1, s2): deferred shading on every selection route
+    (see ``_proxy_tail``)."""
     K1 = cfg.proxy_samples
     cdf = cfg.infer_cdf and cfg.proxy_pallas and K1 == 0
     if cfg.infer_cdf and not cfg.proxy_pallas and K1 == 0:
@@ -420,7 +431,8 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
     cap_eff = min(cap, K)
     ts2, seg2, valid2 = select(ts, sig_p, t_lo, t_hi, cap=cap_eff,
                                w_eps=float(cfg.infer_w_eps))
-    tail = dict(bg_color=bg_color, anchor_fn=anchor_fn, any_act=any_act)
+    tail = dict(bg_color=bg_color, anchor_fn=anchor_fn, any_act=any_act,
+                deferred_fns=deferred_fns)
     if cdf:
         return _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts,
                            ts2, None, valid2, cap_eff, cfg, dt2=seg2, **tail)
@@ -430,7 +442,7 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
 
 def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts, ts2,
                 skip2, valid2, cap_eff: int, cfg: RenderConfig, *, bg_color,
-                anchor_fn=None, any_act=None, dt2=None):
+                anchor_fn=None, any_act=None, dt2=None, deferred_fns=None):
     """Exact field eval + front-to-back composite over the [N, cap]
     survivor slots.  Each slot integrates over its segment dt2 (inverse-
     CDF placement) or the bin width dts (top-k); ``skip2`` (top-k only;
@@ -443,29 +455,36 @@ def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts, ts2,
     active span, ``any_act``), or once per ray seeded at its first
     survivor (at the middle of the first bin of its span [t_lo, ...]
     when the slot is empty), as training seeds at the first marched
-    sample."""
+    sample.
+
+    With ``deferred_fns`` = (s1, s2) the shading is deferred to the ray:
+    s1(x [M, 3], frames or None) -> (sigma [M], feature rows [M, C]) on
+    the survivors (frames only per survivor, with ``anchor_per_sample``:
+    as in JAX, no per-ray seed here), the composite weights average each
+    ray's rows, and s2(rows [N, C], rays_d) -> rgb [N, 3] shades once a
+    ray, weighted by the ray's weights_sum."""
     N = rays_o.shape[0]
     x2 = torch.clamp(rays_o[:, None, :] + ts2[..., None] * rays_d[:, None, :],
                      -cfg.bound, cfg.bound)              # [N, cap, 3]
     d2 = rays_d[:, None, :].expand(x2.shape)
+    frames2 = None
     if anchor_fn is not None and cfg.anchor_per_sample:
         frames2 = anchor_fn(rays_o, rays_d, x2.reshape(-1, 3),
                             (valid2 & any_act[:, None]).reshape(-1))
-        out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3), frames2)
-    elif anchor_fn is not None:
+    elif anchor_fn is not None and deferred_fns is None:
         t_seed = torch.where(valid2[:, 0], ts2[:, 0], t_lo + 0.5 * dts)
         x_seed = torch.clamp(rays_o + t_seed[:, None] * rays_d, -cfg.bound,
                              cfg.bound)
         frames = anchor_fn(rays_o, rays_d, x_seed, any_act)
         frames2 = {k: torch.repeat_interleave(a, cap_eff, dim=0)
                    for k, a in frames.items()}
-        out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3), frames2)
+    if deferred_fns is not None:
+        out = deferred_fns[0](x2.reshape(-1, 3), frames2)
     else:
-        out = field_fn(x2.reshape(-1, 3), d2.reshape(-1, 3))
+        out = _call(field_fn, frames2, x2.reshape(-1, 3), d2.reshape(-1, 3))
     if not isinstance(out, tuple):
         raise ValueError("proxy mode needs field_fn -> (sigma, rgb)")
     sigma2 = out[0].reshape(N, cap_eff) * cfg.density_scale
-    rgb2 = out[1].reshape(N, cap_eff, 3)
 
     seg2 = dts[:, None] if dt2 is None else dt2
     sdt2 = torch.where(valid2, sigma2 * seg2, 0.0)
@@ -476,8 +495,15 @@ def _proxy_tail(field_fn, rays_o, rays_d, nears, fars, t_lo, dts, ts2,
     trans2 = torch.exp(-od2)
     w2 = torch.where(valid2, trans2 * (1.0 - torch.exp(-sdt2)), 0.0)
 
-    image = torch.sum(w2[..., None] * rgb2, dim=1)       # [N, 3]
     wsum = torch.sum(w2, dim=-1)
+    if deferred_fns is not None:
+        feat = out[1].reshape(N, cap_eff, -1)
+        fbar = torch.sum(w2[..., None] * feat, dim=1) \
+            / torch.clamp(wsum, min=1e-6)[:, None]
+        image = wsum[:, None] * deferred_fns[1](fbar, rays_d)
+    else:
+        image = torch.sum(w2[..., None] * out[1].reshape(N, cap_eff, 3),
+                          dim=1)                         # [N, 3]
     dep = torch.sum(w2 * ts2, dim=-1)
     image = image + (1.0 - wsum)[..., None] * bg_color
     denom = torch.where(fars > nears, fars - nears, 1.0)
@@ -643,7 +669,8 @@ class PrepassState:
       when nothing is occupied (pure background);
     occ_dil: [H^3] uint8 dilated prepass occupancy on the device;
     dens8: [H^3, 8] proxy corner table on the device (proxy mode with
-      the density grid; None otherwise, and frames take the pool path);
+      the density grid, bf16 with ``proxy_bf16``; None otherwise, and
+      frames take the pool path);
     tau_samples: the tau-carve sample count for this AABB;
     device: where the frame renders;
     occ: the grid's own occupancy, which the pool path marches."""
@@ -666,7 +693,8 @@ class PrepassState:
         dens8 = None
         if (density is not None and cfg.cascades == 1
                 and cfg.infer_mode == "proxy"):
-            dens8 = density_corner_table(density, cfg.grid_size)
+            dens8 = density_corner_table(density, cfg.grid_size,
+                                         bf16=cfg.proxy_bf16)
         return cls(
             aabb_np=aabb_np,
             aabb=(None if aabb_np is None
@@ -833,13 +861,14 @@ def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
                 B: int, W: int, Wb: int, chunk: int, row0: int = 0,
                 plain_select: bool = False) -> torch.Tensor:
     """Gather-render-scatter for the live rays perm[start:start+chunk]
-    (the last chunk is shorter): the proxy render over the corner table,
-    or without one the pool render (march of the grid's occupancy within
-    the prepass span, compacted pool, two-phase with ``fns``' sigma and
-    colour functions).  ``frame``'s rgb lanes still hold the background
-    of every unwritten ray, so the chunk's bg gather reads it; the frame
-    is updated in place and returned."""
-    field_fn, anchor_fn, sigma_fn, color_fn = fns
+    (the last chunk is shorter): the proxy render over the corner table
+    (deferred with ``fns``' stage pair), or without one the pool render
+    (march of the grid's occupancy within the prepass span, compacted
+    pool, two-phase with ``fns``' sigma and colour functions).
+    ``frame``'s rgb lanes still hold the background of every unwritten
+    ray, so the chunk's bg gather reads it; the frame is updated in place
+    and returned."""
+    field_fn, anchor_fn, sigma_fn, color_fn, deferred_fns = fns
     idx_c = perm[start:min(start + chunk, count)]
     ro, rd = _chunk_rays(pose3, intr, idx_c, row0, W)
     bg_c = frame[idx_c, :3]
@@ -848,6 +877,7 @@ def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
         out = render_rays_proxy(field_fn, prepass.dens8, ro, rd, t0_d[idx_b],
                                 t1_d[idx_b], cfg, bg_color=bg_c,
                                 anchor_fn=anchor_fn,
+                                deferred_fns=deferred_fns,
                                 plain_select=plain_select)
     else:
         out = render_rays(
@@ -865,23 +895,32 @@ def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
 
 
 def _bind(params, field_static, field_apply, anchor_apply, sigma_apply,
-          color_apply):
+          color_apply, deferred_apply=None):
     """The per-point functions of a frame: (field_fn, anchor_fn, sigma_fn,
-    color_fn) with params and field_static bound; with ``anchor_apply``
-    the field functions take the anchor frames as their last argument."""
+    color_fn, deferred_fns) with params and field_static bound; with
+    ``anchor_apply`` the field functions take the anchor frames as their
+    last argument.  deferred_fns: None, or the stage pair (s1(x, frames),
+    s2(fbar, d)) of ``deferred_apply`` = (s1(params, x, field_static,
+    frames), s2(params, fbar, d, field_static))."""
     st = field_static
+    dfn = None
+    if deferred_apply is not None:
+        s1, s2 = deferred_apply
+        dfn = (lambda x, f: s1(params, x, st, f),
+               lambda fb, d: s2(params, fb, d, st))
     if anchor_apply is not None:
         return (lambda x, d, f: field_apply(params, x, d, st, f),
                 lambda o, d, xs, sv: anchor_apply(params, o, d, xs, sv, st),
                 None if sigma_apply is None else
                 (lambda x, d, f: sigma_apply(params, x, d, st, f)),
                 None if color_apply is None else
-                (lambda x, d, a, f: color_apply(params, x, d, a, st, f)))
+                (lambda x, d, a, f: color_apply(params, x, d, a, st, f)),
+                dfn)
     return (lambda x, d: field_apply(params, x, d, st), None,
             None if sigma_apply is None else
             (lambda x, d: sigma_apply(params, x, d, st)),
             None if color_apply is None else
-            (lambda x, d, a: color_apply(params, x, d, a, st)))
+            (lambda x, d, a: color_apply(params, x, d, a, st)), dfn)
 
 
 def _crop(prepass: PrepassState, crop_aabb, cfg: RenderConfig):
@@ -906,8 +945,9 @@ def _render_aabb_hits(fns, frame, pose, intr, aabb, prepass: PrepassState,
     cascade): every pixel's ray against the occupied AABB, one host sync
     for the hit count, then the hits in pixel order in chunks through
     ``render_rays`` (the pool path; its slab test clamps each ray to the
-    AABB).  Returns (frame, live rays, chunks)."""
-    field_fn, anchor_fn, sigma_fn, color_fn = fns
+    AABB; ``fns``' deferred stages are not used, as in JAX).  Returns
+    (frame, live rays, chunks)."""
+    field_fn, anchor_fn, sigma_fn, color_fn, _ = fns
     rays = get_rays(pose, intr, H, W)
     nears, fars = near_far_from_aabb(rays["rays_o"], rays["rays_d"], aabb,
                                      0.0)
@@ -933,7 +973,7 @@ def _render_aabb_hits(fns, frame, pose, intr, aabb, prepass: PrepassState,
 def render_image(field_apply, field_static, params, prepass: PrepassState,
                  pose, intrinsics, H: int, W: int, cfg: RenderConfig, *,
                  bg_color=1.0, anchor_apply=None, sigma_apply=None,
-                 color_apply=None, crop_aabb=None,
+                 color_apply=None, crop_aabb=None, deferred_apply=None,
                  plain_select: bool = False, row0: int = 0,
                  frame_rows: int | None = None):
     """Render a full frame: block prepass, live compaction, one host sync
@@ -952,6 +992,10 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     crop, is intersected with the occupied AABB.  ``bg_color``: a scalar,
     an [3] colour or an [H * W, 3] image, what a ray that composites no
     weight shows.  ``plain_select``: see ``render_rays_proxy``.
+    ``deferred_apply`` (s1(params, x, field_static, frames) -> (sigma,
+    feature rows), s2(params, fbar, d, field_static) -> rgb): deferred
+    shading on the proxy path when given (the caller passes it when
+    ``cfg.deferred``); the pool and AABB-hit paths ignore it.
     With ``frame_rows`` (the height of a frame of one cascade), one band
     of it: the H rows from pixel row ``row0`` on (a multiple of
     ``prepass_block``), through the band's own block prepass and chunk
@@ -980,7 +1024,7 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     intr_np = np.asarray(intrinsics, np.float32)
     intr = torch.as_tensor(intr_np, device=device)
     fns = _bind(params, field_static, field_apply, anchor_apply,
-                sigma_apply, color_apply)
+                sigma_apply, color_apply, deferred_apply)
     if prepass.occ_dil is None:
         if frame_rows is not None:
             raise ValueError("render_image: a band needs a grid of one "

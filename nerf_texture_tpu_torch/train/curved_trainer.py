@@ -64,10 +64,9 @@ the import mode's field at every near cell (the anchor table is the
 trained field's alone), over the z = 0 slab of the flat canvas or the
 cells near the imported mesh or points.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): training in an import mode (item 11.2: the reference has no
-caller of a pose-free refit of an import), and the deferred shading of
-the baked render (item 12).
+Not ported (raises ``NotImplementedError`` naming its ROADMAP item):
+training in an import mode (item 11.2: the reference has no caller of a
+pose-free refit of an import).
 """
 
 from __future__ import annotations
@@ -728,6 +727,24 @@ def curved_field_apply_baked(bundle, x, d, static, frames=None):
         euler_rot=bundle.get("euler_rot"))
 
 
+def curved_field_apply_baked_s1(bundle, x, static, frames=None):
+    """Deferred baked stage 1 (a sample): sigma and the flat shading
+    feature row (``curved_field.forward_baked_s1``)."""
+    return curved_field.forward_baked_s1(bundle["params"], bundle["bake"], x,
+                                         static[0], frames)
+
+
+def curved_field_apply_baked_s2(bundle, fbar, d, static):
+    """Deferred baked stage 2 (a ray): the shading of the composited
+    feature row (``curved_field.forward_baked_s2``)."""
+    ccfg, _, _, light_visual_mode = static
+    return curved_field.forward_baked_s2(
+        bundle["params"], fbar, d, ccfg, bundle["rt"],
+        light_visual_mode=light_visual_mode,
+        light_import=bundle.get("light_import"),
+        euler_rot=bundle.get("euler_rot"))
+
+
 def curved_anchor_apply_baked(bundle, rays_o, rays_d, x_seed, seed_valid,
                               static):
     """Anchor frames and tile addressing by one row gather from the
@@ -1167,7 +1184,10 @@ class CurvedTrainer(CheckpointMethods):
         ``baked=True`` (without ``parity``) renders the live path through
         the baked atlas of these params (``bake_atlas``); it needs mode
         'none', RGB, the hash encoder and the collapsed anchor table, and
-        without them warns and renders the live field.
+        without them warns and renders the live field; with
+        ``rcfg.deferred`` it shades once a ray (``forward_baked_s1`` /
+        ``_s2``).  The live and pool frames ignore ``deferred``, as in
+        JAX.
         ``plain_select`` runs the plain selection in place of the kernel.
         Every path renders within ``crop_aabb`` (None: the whole grid)
         and shades with ``light_import``, ``euler`` and
@@ -1204,10 +1224,6 @@ class CurvedTrainer(CheckpointMethods):
                               "hash encoder + collapsed anchor table; "
                               "falling back to the live field",
                               stacklevel=2)
-            elif rcfg.deferred:
-                raise NotImplementedError(
-                    "CurvedTrainer.render_frame: deferred shading of the "
-                    "baked atlas is not ported; ROADMAP Queue 1, item 12")
             else:
                 bundle["bake"], bundle["anchor_ext"] = self.bake_atlas(
                     use_ema=use_ema)
@@ -1216,7 +1232,11 @@ class CurvedTrainer(CheckpointMethods):
                     self._prepass_for(rcfg), pose, self.dataset.intrinsics,
                     H or self.H, W or self.W, rcfg, bg_color=bg_color,
                     anchor_apply=curved_anchor_apply_baked,
-                    crop_aabb=self.crop_aabb, plain_select=plain_select)
+                    crop_aabb=self.crop_aabb,
+                    deferred_apply=((curved_field_apply_baked_s1,
+                                     curved_field_apply_baked_s2)
+                                    if rcfg.deferred else None),
+                    plain_select=plain_select)
         return render_image(
             curved_field_apply, static, bundle, self._prepass_for(rcfg),
             pose, self.dataset.intrinsics, H or self.H, W or self.W, rcfg,

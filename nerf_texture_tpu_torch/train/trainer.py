@@ -257,6 +257,18 @@ def ngp_color_apply(params, x, d, geo_feat, mcfg: ngp.NGPConfig):
     return ngp.color(params, d, geo_feat, mcfg)
 
 
+def ngp_deferred_s1(params, x, mcfg: ngp.NGPConfig, frames=None):
+    """Deferred stage 1 (a sample): sigma and geo_feat as the flat
+    feature row (``frames`` unused: the NGP has no chart)."""
+    return ngp.density(params, x, mcfg, table_dtype=_infer_table_dtype(mcfg))
+
+
+def ngp_deferred_s2(params, fbar, d, mcfg: ngp.NGPConfig):
+    """Deferred stage 2 (a ray): the colour MLP on the composited
+    geo_feat (the view direction is constant along a ray)."""
+    return ngp.color(params, d, fbar, mcfg)
+
+
 def ngp_background_image(params, pose, intrinsics, *, H: int, W: int,
                          mcfg: ngp.NGPConfig) -> torch.Tensor:
     """[H * W, 3] learned background-sphere colours of a whole frame
@@ -296,14 +308,11 @@ def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
 
     With ``mcfg.bg_radius`` > 0 the learned background sphere's image
     (``ngp_background_image``) replaces ``bg_color``, as in the JAX
-    trainer's ``render_frame``.
+    trainer's ``render_frame``.  ``rcfg.deferred`` shades once a ray
+    (``ngp_deferred_s1`` / ``_s2``) on the proxy path.
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live, chunks)."""
-    if rcfg.deferred:
-        raise NotImplementedError(
-            "render_frame: deferred shading is not ported (ROADMAP Queue 1, "
-            "item 12: port it only if an H100 profile asks for it)")
     if prepass is None:
         prepass = PrepassState.build(occ.occ, rcfg, density=occ.density)
     if mcfg.bg_radius > 0:
@@ -313,6 +322,8 @@ def render_frame(params, occ: OccupancyGrid | None, pose, intrinsics,
                         prepass, pose, intrinsics, H, W, rcfg,
                         bg_color=bg_color, sigma_apply=ngp_sigma_apply,
                         color_apply=ngp_color_apply, crop_aabb=crop_aabb,
+                        deferred_apply=((ngp_deferred_s1, ngp_deferred_s2)
+                                        if rcfg.deferred else None),
                         plain_select=plain_select)
 
 

@@ -83,6 +83,17 @@ def _close(a, b, atol, rtol=0.0, msg=""):
                                err_msg=msg)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module: beside pytest-xdist's other
+    workers and JAX's thread pools a full torch pool makes every small op
+    wait on the busy cores (as in tests/test_torch_checkpoint.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trainers():
     """A JAX CurvedTrainer after one grid refresh over scaled params
@@ -322,16 +333,22 @@ def test_baked_fallbacks_and_unported(trainers):
         tt.anchor_collapse = True
         tt._anchor_tab = saved_tab
     np.testing.assert_array_equal(_np(out["image"]), live)
-    rcfg = tt.rcfg
-    tt.rcfg = dataclasses.replace(rcfg, deferred=True)
+    # deferred shading (ported since item 12) over JAX's atlas, converted
+    # (no bake of the port's own here): the per-sample frame's weights,
+    # within tests/test_baked.py's mean of its image
+    rcfg, saved_bake, st = tt.rcfg, tt._bake, tt.state
+    tt._bake = [(st.params, st.step, st.occ, 16,
+                 _port_bake(trainers["bake_j"]), _t(trainers["ext_j"]))]
     try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tt.render_frame(pose, use_ema=False, baked=True)
+        per_sample = tt.render_frame(pose, use_ema=False, baked=True)
+        tt.rcfg = dataclasses.replace(rcfg, deferred=True)
+        deferred = tt.render_frame(pose, use_ema=False, baked=True)
     finally:
-        tt.rcfg = rcfg
-    for fn in (tcf.forward_baked_s1, tcf.forward_baked_s2):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+        tt.rcfg, tt._bake = rcfg, saved_bake
+    assert deferred["live"] == per_sample["live"] > 0
+    assert torch.equal(deferred["weights_sum"], per_sample["weights_sum"])
+    diff = np.abs(_np(deferred["image"]) - _np(per_sample["image"]))
+    assert 0 < diff.mean() < 0.02
     # parity=True ignores baked, as in JAX: the pool frame
     with warnings.catch_warnings():
         warnings.simplefilter("error")

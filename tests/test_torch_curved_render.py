@@ -87,6 +87,17 @@ def _scaled(params):
     return p
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this module: beside pytest-xdist's other
+    workers and JAX's thread pools a full torch pool makes every small op
+    wait on the busy cores (as in tests/test_torch_checkpoint.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trainers():
     """A JAX CurvedTrainer after one grid refresh, and the port's
@@ -274,13 +285,18 @@ def test_unported_paths_raise(trainers):
     with pytest.raises(ValueError, match="load_field"):
         tct.curved_grid_step(tt.state, tt.field_state, [torch.zeros((1, 3))],
                              ccfg=ct, rcfg=rt, near_cells=[0], mode="shape")
+    # deferred shading is ported for the baked frame
+    # (tests/test_torch_deferred.py); the live frame ignores it, as in JAX
     rcfg = tt.rcfg
+    live = tt.render_frame(pose)
     tt.rcfg = dataclasses.replace(rcfg, deferred=True)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.render_frame(pose, baked=True)
+        deferred = tt.render_frame(pose)
     finally:
         tt.rcfg = rcfg
+    assert deferred["live"] > 0
+    for k in ("image", "depth", "weights_sum"):
+        assert torch.equal(deferred[k], live[k]), k
     tcfg = tt.tcfg
     # progressive levels are ported: with the hash encoder, as in JAX, the
     # schedule has no level to advance

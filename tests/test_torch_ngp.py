@@ -179,20 +179,27 @@ def test_density_f32_table_follows_train_table_bf16(train_table_bf16):
 
 
 def test_unported_options_raise():
-    """Deferred shading still raises (ROADMAP item 12); the per-corner
-    encoder and the background sphere are ported and build."""
+    """The per-corner encoder and the background sphere are ported and
+    build, and deferred shading (ported since item 12) renders with them:
+    the rays that composite no weight show the sphere."""
     from nerf_texture_tpu_torch.data.poses import orbit_pose
     from nerf_texture_tpu_torch.data.synthetic import (shell_occupancy,
                                                        sphere_intrinsics)
     from nerf_texture_tpu_torch.render.renderer import RenderConfig
-    from nerf_texture_tpu_torch.train.trainer import render_frame
+    from nerf_texture_tpu_torch.train.trainer import (ngp_background_image,
+                                                      render_frame)
 
     mcfg = tngp.NGPConfig(**dict(NGP_KW, encoder="hash", bg_radius=2.0))
     params = tngp.init(torch.Generator(), mcfg)
     assert {"bg_grid", "bg_net"} <= set(params)
     assert tngp.encode_position(params, torch.zeros(2, 3), mcfg).shape == \
         (2, mcfg.grid_spec.output_dim)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(params, shell_occupancy(16, device="cpu"),
-                     orbit_pose(1.2, 0.7, 2.0), sphere_intrinsics(16, 16),
-                     16, 16, mcfg, RenderConfig(grid_size=16, deferred=True))
+    pose, intr = orbit_pose(1.2, 0.7, 2.0), sphere_intrinsics(16, 16)
+    out = render_frame(params, shell_occupancy(16, device="cpu"), pose,
+                       intr, 16, 16, mcfg,
+                       RenderConfig(grid_size=16, deferred=True))
+    img = out["image"].reshape(-1, 3)
+    assert out["live"] > 0 and bool(torch.isfinite(img).all())
+    miss = out["weights_sum"].reshape(-1) == 0
+    bg = ngp_background_image(params, pose, intr, H=16, W=16, mcfg=mcfg)
+    assert miss.any() and torch.equal(img[miss], bg[miss])

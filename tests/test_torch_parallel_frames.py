@@ -18,7 +18,10 @@ NGP frames (seeded weights, a fixture density shell, 24 x 24):
   frame's (JAX's band clamps them at the band's edges: its band frame
   is not held here).
 - every band frame of the band path within 1e-4 of the port's
-  single-rank ``render_image``.
+  single-rank ``render_image``;
+- a deferred band frame (the NGP's deferred stages, block 4 with the
+  tau carve) at data 2 within 1e-4 of the port's single-rank deferred
+  frame.
 """
 
 import jax
@@ -98,10 +101,14 @@ def _jax_frames(cases):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     cases = _ngp_cases()
-    ranks = R.start_ranks(R.render_job, 4, {"cases": cases},
-                          tmp_path_factory.mktemp("ranks"))
+    tmp = tmp_path_factory.mktemp("ranks")
+    ranks = R.start_ranks(R.render_job, 4, {"cases": cases}, tmp)
+    band4 = cases["band4"]
+    deferred = R.start_ranks(R.render_job, 2, {"cases": {"band4_deferred": {
+        **band4, "rcfg": RenderConfig(**dict(CASES["band4"],
+                                             deferred=True))}}}, tmp)
     want = _jax_frames(cases)
-    return {"jax": want, "ngp": ranks.wait()}
+    return {"jax": want, "ngp": ranks.wait(), "deferred": deferred.wait()}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -124,3 +131,15 @@ def test_ngp_sharded_frame_matches_jax(runs, name):
     if "single" in got:
         np.testing.assert_allclose(got["image"], got["single"], atol=1e-4)
     assert got["chunks"] > 0
+
+
+def test_ngp_deferred_band_frame_matches_single_rank(runs):
+    ranks = runs["deferred"]
+    got = ranks[0]["band4_deferred"]
+    np.testing.assert_array_equal(ranks[1]["band4_deferred"]["image"],
+                                  got["image"])
+    assert float(got["weights_sum"].max()) > 0.05 and got["chunks"] > 0
+    np.testing.assert_allclose(got["image"], got["single"], atol=1e-4)
+    # deferred: not the per-sample band frame of the same view (the
+    # seeded features are near zero, so only a little off)
+    assert np.abs(got["image"] - runs["ngp"][0]["band4"]["image"]).max() > 0

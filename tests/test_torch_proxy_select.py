@@ -443,3 +443,42 @@ def test_shape_and_unhash_frames_through_the_kernel_equal_plain(
         assert float(want["weights_sum"].max()) > 0.5
         for k in ("image", "depth", "weights_sum"):
             assert torch.equal(got[k], want[k]), (tr.mode, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selection", ["cdf", "topk"])
+def test_deferred_frame_through_the_kernel_equals_plain(cuda_device,
+                                                        selection):
+    """Deferred (per-ray) shading of a seeded NGP (tables x 1e4) over the
+    fixture shell, 128x128: the frame through the CUDA kernel (one launch
+    a chunk) equals its plain-selection frame bit for bit."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.synthetic import (shell_occupancy,
+                                                       sphere_intrinsics)
+    from nerf_texture_tpu_torch.models import ngp
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.trainer import render_frame
+
+    mcfg = ngp.NGPConfig(bound=1.0, num_levels=4, level_dim=4,
+                         log2_bricks=10, desired_resolution=256)
+    params = ngp.init(torch.Generator(device=cuda_device).manual_seed(0),
+                      mcfg)
+    params["grid"] = params["grid"] * 1e4
+    rcfg = RenderConfig(bound=1.0, cascades=1, grid_size=32, ray_chunk=1024,
+                        proxy_samples=0, proxy_refined=24, prepass_block=8,
+                        prepass_tau_cull=0.1, deferred=True,
+                        infer_cdf=selection == "cdf",
+                        infer_color_cap=4 if selection == "cdf" else 8)
+    kernel = proxy_select_cdf if selection == "cdf" else proxy_select
+    occ = shell_occupancy(32, device=cuda_device)
+    args = (params, occ, orbit_pose(1.2, 0.7, 2.0),
+            sphere_intrinsics(128, 128), 128, 128, mcfg, rcfg)
+    before = kernel.launches
+    got = render_frame(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == got["chunks"] >= 2
+    want = render_frame(*args, plain_select=True)
+    assert kernel.launches - before == got["chunks"]
+    assert float(want["weights_sum"].max()) > 0.5
+    for k in ("image", "depth", "weights_sum"):
+        assert torch.equal(got[k], want[k]), k

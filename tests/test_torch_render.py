@@ -129,15 +129,22 @@ def test_corner_table_and_proxy_sigma_match():
                                atol=1e-5)
 
 
-def _toy_proxy_render(**change):
-    """render_rays_proxy of both packages on the toy shell field."""
+def _toy_inputs(**change):
+    """The toy shell's render inputs: (RenderConfig keywords, density
+    grid [1, 32^3], rays_o, rays_d [200, 3], JAX's nears, fars)."""
     H = 32
     dens = _toy_density(H)
     o, d = _rays(200, 2)
     aabb = np.array([-0.6] * 3 + [0.6] * 3, np.float32)
     n_j, f_j = jax_near_far(jnp.asarray(o), jnp.asarray(d),
                             jnp.asarray(aabb), 0.2)
-    kw = dict(PROXY_KW, grid_size=H, **change)
+    return dict(PROXY_KW, grid_size=H, **change), dens, o, d, n_j, f_j
+
+
+def _toy_proxy_render(**change):
+    """render_rays_proxy of both packages on the toy shell field."""
+    kw, dens, o, d, n_j, f_j = _toy_inputs(**change)
+    H = kw["grid_size"]
     out_j = jr.render_rays_proxy(
         _toy_field_jax, jr.density_corner_table(jnp.asarray(dens), H),
         jnp.asarray(o), jnp.asarray(d), n_j, f_j, jr.RenderConfig(**kw))
@@ -393,8 +400,9 @@ def test_empty_grid_renders_background():
 
 
 def test_unported_branches_raise():
-    """Deferred shading still raises; the branches ported since render:
-    the two-round proxy and a two-cascade grid (the AABB-hit path)."""
+    """The branches ported since render: the two-round proxy, deferred
+    shading (the NGP's stages: the same weights as the per-sample frame,
+    another image) and a two-cascade grid (the AABB-hit path)."""
     occ = shell_occupancy(16, device="cpu")
     intr = sphere_intrinsics(16, 16)
     pose = orbit_pose(1.2, 0.7, 2.0)
@@ -405,9 +413,15 @@ def test_unported_branches_raise():
     out = render_frame(params, occ, pose, intr, 16, 16, mcfg,
                        dataclasses.replace(base, proxy_samples=32))
     assert bool(torch.isfinite(out["image"]).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(params, occ, pose, intr, 16, 16, mcfg,
-                     dataclasses.replace(base, deferred=True))
+    per_sample = render_frame(params, occ, pose, intr, 16, 16, mcfg, base)
+    deferred = render_frame(params, occ, pose, intr, 16, 16, mcfg,
+                            dataclasses.replace(base, deferred=True))
+    assert bool(torch.isfinite(deferred["image"]).all())
+    assert deferred["live"] == per_sample["live"] > 0
+    np.testing.assert_allclose(_np(deferred["weights_sum"]),
+                               _np(per_sample["weights_sum"]), rtol=0,
+                               atol=1e-6)
+    assert not torch.equal(deferred["image"], per_sample["image"])
     two_cascades = dataclasses.replace(base, cascades=2)
     prepass = tr.PrepassState.build(torch.cat([occ.occ, occ.occ]),
                                     two_cascades)

@@ -244,13 +244,16 @@ def tp_mlp_job(rank, world, payload):
 
 def render_job(rank, world, payload):
     """``render_image_sharded`` over a data-only mesh for each case of the
-    payload: (name, params, occ, density or None, config)."""
+    payload: (name, params, occ, density or None, config); with the
+    config's ``deferred``, the NGP's deferred stages."""
     from nerf_texture_tpu_torch.convert import params_from_jax
     from nerf_texture_tpu_torch.parallel import make_mesh
     from nerf_texture_tpu_torch.parallel.eval import render_image_sharded
     from nerf_texture_tpu_torch.render.renderer import (PrepassState,
                                                         render_image)
-    from nerf_texture_tpu_torch.train.trainer import ngp_field_apply
+    from nerf_texture_tpu_torch.train.trainer import (ngp_deferred_s1,
+                                                      ngp_deferred_s2,
+                                                      ngp_field_apply)
 
     mesh = make_mesh(world, 1, device="cpu")
     out = {}
@@ -259,10 +262,12 @@ def render_job(rank, world, payload):
         occ = torch.tensor(case["occ"])
         dens = case.get("density")
         dens = None if dens is None else torch.tensor(dens)
+        deferred = ((ngp_deferred_s1, ngp_deferred_s2)
+                    if case["rcfg"].deferred else None)
         res = render_image_sharded(
             ngp_field_apply, case["mcfg"], params, occ, case["pose"],
             case["intr"], case["H"], case["W"], case["rcfg"], mesh,
-            density=dens)
+            density=dens, deferred_apply=deferred)
         out[name] = {"image": _np(res["image"]),
                      "weights_sum": _np(res["weights_sum"]),
                      "chunks": res["chunks"]}
@@ -272,7 +277,7 @@ def render_job(rank, world, payload):
                     ngp_field_apply, case["mcfg"], params,
                     PrepassState.build(occ, case["rcfg"], density=dens),
                     case["pose"], case["intr"], case["H"], case["W"],
-                    case["rcfg"])
+                    case["rcfg"], deferred_apply=deferred)
             out[name]["single"] = _np(single["image"])
     return out
 
