@@ -285,6 +285,22 @@ exit and no result line, and stops every process it started:
               (info, stroke, segment, /frame, save); ``apply_masks`` on
               phase 18's capture frames and ``colmap_to_transforms`` on the
               masked images.
+ 21. shell: the seven-stage pipeline on the textured bumpy shell
+              (``scripts/torch_shell_pipeline.py``, the JAX package's
+              ``tests/test_parity_pipeline.py`` FULL profile, seed 0),
+              after phase 15 in the relight worker: coarse NGP 600 steps,
+              ``save_mesh`` at 64^3, the template (largest component,
+              Laplacian smoothing) and its h_threshold, curved training
+              500 steps, patch export, quilting, ``load_field`` and
+              ``load_patch`` with their frames -- every gate of the JAX
+              test (NGP > 17 dB and curved > 15 dB at its held-out pose,
+              > 200 vertices, the median radius within 0.1 of the base,
+              h < 0.35, >= 4 patches carrying signal, a textured canvas,
+              finite frames); the trained NGP, the trained curved field
+              and the imported ``field`` canvas rendered at 400x400
+              through proxy_select_cdf and proxy_select, each kernel frame
+              bit for bit with its plain-selection frame and its launches
+              == chunks; each stage's seconds and the phase's wall.
 
 Prints a ``{"kernels": [...]}`` JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``.  Needs one card, the CUDA toolkit
@@ -293,7 +309,8 @@ texture files to build/texture/, the surface files to build/surfaces/,
 the CLIs' scene and workspace to build/cli/, phase 15's sky and CLI
 workspaces to build/relight/, phase 16's files to build/viewer/.
 ``--only segment`` runs phases 1, 2, 13's scene writer, 18's capture
-frames and 20 (its files to build/segment/); ``--only entry_points`` runs
+frames and 20 (its files to build/segment/); ``--only shell`` phases 1, 2
+and 21; ``--only entry_points`` runs
 phases 1, 2 and 13 alone, ``--only relight``
 phases 1, 2 and 15 in this process (with an SH arm of its own for the
 imports, and the CLIs on a scene and template written for them), ``--only
@@ -354,13 +371,12 @@ TWIN_FRAME_OFF_SHARE = 1e-3
 # deferred (per-ray) shading vs the per-sample frame of the same field and
 # selection: the JAX package's bound (tests/test_baked.py:104), the mean
 # absolute difference of the images.  A deferred band frame is gated as
-# the other band frames (FRAME_*) and its max abs difference from the
-# single-rank deferred frame reported beside the CPU test's bound
-# (DEFERRED_BAND_ATOL) and beside the single-rank frame's own change at
-# half the ray chunk: on the card the MLPs' GEMM kernels depend on a
-# chunk's row count, and a band's chunks hold other rays than the
-# frame's, so a last-bit f32 difference can round an activation to the
-# neighbouring bf16 value.
+# the other band frames (FRAME_*) and within DEFERRED_BAND_ATOL (the CPU
+# test's bound) of the single-rank deferred frame: on the card the MLPs'
+# GEMM kernels depend on a chunk's row count, and every chunk holds the
+# full ray chunk (the last one padded, as in JAX), so a ray's rows go
+# through products of one shape whichever chunk holds it.  Its change at
+# half the ray chunk is reported beside it (that row-count dependence).
 DEFERRED_MEAN_MAX = 0.02
 DEFERRED_BAND_ATOL = 1e-4
 # trained field: the JAX package's cells after the same 700 steps
@@ -2622,6 +2638,8 @@ def relight_cli_runs() -> dict:
 
 
 WORKER_START = "relight worker: start"
+# phase 21's host priority in the relight worker, on top of the worker's
+SHELL_NICE = 10
 
 
 def relight_clis(card: str, clis: Background) -> dict:
@@ -2787,10 +2805,12 @@ def relight_phase(dev, card: str, ds, own_sh: bool) -> dict:
     return cdf
 
 
-def relight_from_worker(worker: Background) -> dict:
+def relight_from_worker(worker: Background) -> tuple:
     """The relight worker's result (``start_worker('relight')``): its
-    phase-15 lines printed here; returns the launches of its paths."""
-    return from_worker(worker, "relight", WORKER_START)["relight_launches"]
+    phase-15 and phase-21 lines printed here; returns the selection
+    launches of phase 15's paths and of phase 21's (by kind)."""
+    res = from_worker(worker, "relight", WORKER_START)
+    return res["relight_launches"], res["shell"]
 
 
 # the viewer and scenes larger than the unit cube (phase 16).  The JPEG
@@ -3980,9 +4000,55 @@ def scenes_phase(dev, card: str, plain_iters: int,
     return res
 
 
+def shell_phase(dev, card: str) -> dict:
+    """Phase 21: ``scripts/torch_shell_pipeline.py``'s ``run("FULL", 0,
+    "cuda")``, every gate of the JAX package's pipeline test and the six
+    kernel frames.  Returns the selection launches of its kernel frames
+    by path and kind."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_shell_pipeline as pipe
+
+    t0 = time.perf_counter()
+    res = pipe.run("FULL", 0, str(dev))
+    wall = time.perf_counter() - t0
+    P = pipe.FULL
+    print(f"shell: NGP {res['ngp_psnr']:.2f} dB (gate > {P['ngp_gate']}), "
+          f"curved {res['curved_psnr']:.2f} dB (gate > "
+          f"{P['curved_gate']}) at the held-out pose; mesh "
+          f"{res['vertices']} vertices (> 200), median radius "
+          f"{res['median_radius']:.4f} (base 0.5 +- 0.1); h "
+          f"{res['h']:.4f} (< 0.35); {res['patches']} patches (>= 4), "
+          f"std {res['patch_std']:.4f}; the imported canvas: weights_sum "
+          f"max {res['field_ws_max']:.3f}, in-silhouette std "
+          f"{res['field_std']:.4f} (> 0.005) ({card})")
+    print("shell: stage seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res["seconds"].items()) + f" ({card})")
+    check(not res["failed"], f"shell: failed gates {res['failed']}")
+    launches = {"cdf": {}, "topk": {}}
+    for field, frames in res["kernel_frames"].items():
+        for kind, f in frames.items():
+            other = "topk" if kind == "cdf" else "cdf"
+            print(f"shell: {field} {kind} 400x400: {f['ms']:.1f} ms, live "
+                  f"{f['live']}, chunks {f['chunks']}, launches "
+                  f"{f['launches'][kind]}, lit {f['lit']:.3f}; kernel frame "
+                  f"== plain-selection frame bit for bit: {f['bitwise']} "
+                  f"({card})")
+            check(f["bitwise"], f"shell {field} {kind}: the kernel frame "
+                  f"differs from its plain-selection frame")
+            check(f["launches"][kind] == f["chunks"] > 0
+                  and f["launches"][other] == 0,
+                  f"shell {field} {kind}: launches {f['launches']} for "
+                  f"{f['chunks']} chunks")
+            check(f["lit"] > 0.0, f"shell {field} {kind}: nothing lit")
+            launches[kind][f"shell_{field}"] = f["launches"][kind]
+    print(f"shell: phase 21 {wall:.1f} s ({card})")
+    return launches
+
+
 def start_worker(kind: str, nice: int) -> Background:
-    """Phase ``kind`` (relight: 15 but its CLIs; viewer: 16 but its
-    in-process viewer) in a process of its own on the same card
+    """Phase ``kind`` (relight: 15 but its CLIs, then 21; viewer: 16 but
+    its in-process viewer) in a process of its own on the same card
     (``chip_smoke.py --worker <kind>``) at host priority ``nice`` (its
     subprocesses inherit it), on a Background thread: its standard output
     goes to chiprun_out/<kind>_worker.log, its errors to
@@ -5192,9 +5258,11 @@ def parallel_phase(dev, card: str) -> dict:
                      f"{'' if gate else ' (not gated: the tau sweep cap)'}")
             if "atol" in f:
                 line += (f"; max abs {'<=' if e <= f['atol'] else '>'} "
-                         f"{f['atol']:g} (the CPU test's bound); the "
-                         f"single-rank frame at half the ray chunk differs "
-                         f"from it by {f['chunk_floor']:.3g}")
+                         f"{f['atol']:g} (gated); the single-rank frame at "
+                         f"half the ray chunk differs from it by "
+                         f"{f['chunk_floor']:.3g}")
+                check(e <= f["atol"], f"parallel {tag} {name} vs the "
+                      f"single-rank frame: max abs {e} > {f['atol']}")
             print(line + f" ({card})")
             check(not gate or (p >= FRAME_PSNR_MIN and e <= FRAME_MAX_ABS
                                and m <= FRAME_LIVE_MISMATCH),
@@ -5324,6 +5392,7 @@ def main() -> int:
     only_prepare = sys.argv[1:] == ["--only", "prepare"]
     only_parallel = sys.argv[1:] == ["--only", "parallel"]
     only_segment = sys.argv[1:] == ["--only", "segment"]
+    only_shell = sys.argv[1:] == ["--only", "shell"]
     as_worker = sys.argv[1:] == ["--worker", "relight"]
     as_viewer_worker = sys.argv[1:] == ["--worker", "viewer"]
 
@@ -5382,12 +5451,24 @@ def main() -> int:
               f"8 and 17 only, phase 17 {walls['17']:.1f} s ({card})")
         return 0
     if as_worker:
-        # phase 15 but its CLIs, for the whole smoke, which reads this
-        # output (start_worker)
+        # phase 15 but its CLIs, then phase 21, for the whole smoke, which
+        # reads this output (start_worker)
         print(WORKER_START)
         cdf = relight_phase(dev, card, SyntheticSphereDataset(
             n_frames=8, H=800, W=800), own_sh=False)
-        print(json.dumps({"relight_launches": cdf}))
+        torch.cuda.empty_cache()
+        # phase 21 yields the host to phase 13's CLI chain, which holds
+        # the smoke's wall: this worker ends long before the viewer's
+        os.nice(SHELL_NICE)
+        shell = shell_phase(dev, card)
+        print(json.dumps({"relight_launches": cdf, "shell": shell}))
+        return 0
+    if only_shell:
+        # a shorter run while working on phase 21: the device, the build
+        # and that phase only; no result lines
+        shell_phase(dev, card)
+        print(f"smoke: wall {time.perf_counter() - wall0:.1f} s, phase 21 "
+              f"only ({card})")
         return 0
     if as_viewer_worker:
         # phase 16 but its in-process viewer, for the whole smoke, which
@@ -5661,10 +5742,10 @@ def main() -> int:
     lap("13")
 
     # -- 15. relighting and the vertex encoder --------------------------------
-    relight_cdf = {"relight_sh_import": sh_import,
-                   **relight_from_worker(worker)}
+    relight_launches, shell = relight_from_worker(worker)
+    relight_cdf = {"relight_sh_import": sh_import, **relight_launches}
     relight_topk = relight_clis(card, clis["relight"])
-    lap("15")
+    lap("15, 21")
 
     # -- 16. the JPEG scene, bound 2 and --gui (the worker) -------------------
     (b2_topk, b2_cdf), par, maxflow_line = scenes_from_worker(
@@ -5686,7 +5767,7 @@ def main() -> int:
                  "texture_field": texture["texture_field"],
                  "texture_patch": texture["texture_patch"], **surfaces,
                  **relight_cdf, **viewer, "bound2_cli_eval": b2_cdf,
-                 **par.get("cdf", {})}
+                 **par.get("cdf", {}), **shell["cdf"]}
 
     def kernel_line(name, kind, K, cap, replaces, paths, err, other=()):
         """One kernel's entry of the JSON line at its main-path shape
@@ -5729,7 +5810,7 @@ def main() -> int:
                      "ngp_background_topk": background["topk"],
                      "texture_two_round": texture["texture_two_round"],
                      **entry, **relight_topk, "bound2_cli_eval": b2_topk,
-                     **par.get("topk", {})},
+                     **par.get("topk", {}), **shell["topk"]},
                     topk_err),
         {**maxflow_line, "card": card}]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Camera poses (numpy): ``orbit_pose``, the NeRF-to-ngp axis change and
-the camera normalisation of a captured scene (``nerf_matrix_to_ngp``,
-``min_line_dist_center``, ``centralize_cps``, ``normalize_cps``), as in
+"""Camera poses (numpy): ``orbit_pose``, ``rand_poses``, the NeRF-to-ngp
+axis change and the camera normalisation of a captured scene
+(``nerf_matrix_to_ngp``, ``min_line_dist_center``, ``centralize_cps``,
+``normalize_cps``), as in
 ``nerf_texture_tpu/data/poses.py`` statement for statement, kept here so
 that the port needs nothing of the JAX package at run time (tests hold
 them equal bit for bit)."""
@@ -64,3 +65,14 @@ def normalize_cps(cps: np.ndarray, scale: float = 1.2):
     radius = 1.1 * np.max(dists) + 1e-5
     cps[:, :3, 3] /= radius / scale
     return cps, radius
+
+
+def rand_poses(rng: np.random.Generator, size: int, radius: float = 1.0,
+               theta_range=(np.pi / 3, 2 * np.pi / 3),
+               phi_range=(0, 2 * np.pi)) -> np.ndarray:
+    """[size, 4, 4] orbit poses at uniform random (theta, phi) drawn from
+    ``rng`` (all thetas first, then all phis)."""
+    thetas = rng.uniform(*theta_range, size)
+    phis = rng.uniform(*phi_range, size)
+    return np.stack([orbit_pose(t, p, radius)
+                     for t, p in zip(thetas, phis)], axis=0)

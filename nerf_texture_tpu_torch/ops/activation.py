@@ -26,3 +26,9 @@ class _TruncExp(torch.autograd.Function):
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     """The truncated density activation: exp(clamp(x, -15, 15))."""
     return _TruncExp.apply(x)
+
+
+def biased_softplus(x: torch.Tensor, bias: float = 0.0) -> torch.Tensor:
+    """Softplus with a shift, an alternative density activation:
+    log(1 + exp(x + bias)) (torch's, linear beyond 20)."""
+    return torch.nn.functional.softplus(x + bias)

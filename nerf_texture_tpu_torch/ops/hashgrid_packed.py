@@ -321,6 +321,39 @@ def packed_encode_bound_dual(inputs: torch.Tensor, table: torch.Tensor,
                               amp=amp)
 
 
+def packed_encode_pair(inputs: torch.Tensor, table_a: torch.Tensor,
+                       table_b: torch.Tensor, spec: PackedGridSpec):
+    """Encode [..., D] points in [0, 1] through TWO same-spec f32 tables
+    with ONE row gather (and one scatter in the backward): the indices and
+    weights are shared, the tables stacked row-wise, and the second
+    table's rows are the first's ids plus ``table_rows``.  Returns
+    (features of a, features of b), each [..., L * C] f32."""
+    D = spec.input_dim
+    C = spec.level_dim
+    L = spec.num_levels
+    R = spec.table_rows
+    prefix = inputs.shape[:-1]
+    x = inputs.reshape(-1, D)
+    B = x.shape[0]
+    idx, w, oob = _indices_weights(spec, x)
+    tab = torch.cat([table_a, table_b], dim=0)             # [2R, W]
+    rows = _rows_lookup(tab, torch.cat([idx, idx + R]), 2 * R)
+    rows = rows[:, :spec.row_width].reshape(2, L, B, spec.lattice, C)
+    out = torch.sum(w[None, ..., None] * rows.to(torch.float32), dim=3)
+    out = out.permute(0, 2, 1, 3).reshape(2, B, spec.output_dim)
+    out = torch.where(oob[None], 0.0, out)
+    shape = (*prefix, spec.output_dim)
+    return out[0].reshape(shape), out[1].reshape(shape)
+
+
+def packed_encode_bound_pair(inputs: torch.Tensor, table_a: torch.Tensor,
+                             table_b: torch.Tensor, spec: PackedGridSpec,
+                             bound: float = 1.0):
+    """Two-table encode of points given in [-bound, bound]."""
+    return packed_encode_pair((inputs + bound) / (2.0 * bound), table_a,
+                              table_b, spec)
+
+
 def packed_encode_bound(inputs: torch.Tensor, table: torch.Tensor,
                         spec: PackedGridSpec, bound: float = 1.0,
                         amp: bool = False) -> torch.Tensor:

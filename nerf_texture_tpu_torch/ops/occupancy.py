@@ -11,6 +11,9 @@ caller), so that a test can hand the port the JAX package's draws.
 ``update_host_sparse`` is the curved model's refresh: only the
 near-surface cells are queried (the field is zero outside its thin
 shell), chunk by chunk, with the jitter of ``sparse_draws``.
+``update_host`` is the full refresh as a host loop over slices of
+``chunk`` cells (``chunk_points`` gives a slice's points), with the
+jitter of ``host_draws``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,12 @@ def grid_coords(grid_size: int, device: torch.device | str) -> torch.Tensor:
     H = grid_size
     idx = torch.arange(H ** 3, device=device)
     return torch.stack([idx // (H * H), (idx // H) % H, idx % H], dim=-1)
+
+
+def cell_index(coords, grid_size: int):
+    """C-order flat index of [..., 3] integer cell coords."""
+    return ((coords[..., 0] * grid_size + coords[..., 1]) * grid_size
+            + coords[..., 2])
 
 
 class GridDraws(NamedTuple):
@@ -101,6 +110,55 @@ def cell_points(cell_ids: torch.Tensor, noise: torch.Tensor, *,
     coords = torch.stack([cell_ids // (H * H), (cell_ids // H) % H,
                           cell_ids % H], dim=-1)
     return _cell_points(coords, cas, H, bound) + noise
+
+
+def chunk_points(start: int, noise: torch.Tensor, *, grid_size: int,
+                 cas: int, bound: float, chunk: int) -> torch.Tensor:
+    """Jittered cell-centre points [chunk, 3] of the cells [start, start +
+    chunk) of cascade ``cas`` (ids past the grid clamp to its last cell);
+    noise [chunk, 3] is the jitter in [-half, half) (the JAX function
+    draws it from its key)."""
+    H = grid_size
+    idx = torch.clamp(start + torch.arange(chunk, device=noise.device),
+                      max=H ** 3 - 1)
+    return cell_points(idx, noise, grid_size=H, cas=cas, bound=bound)
+
+
+def host_draws(generator: torch.Generator, *, grid_size: int,
+               cascades: int, bound: float,
+               chunk: int = 131072) -> list[torch.Tensor]:
+    """The jitter of one ``update_host``: per cascade, [ceil(H^3 / chunk)
+    * chunk, 3] uniform in [-half, half), on the generator's device."""
+    n = -(-grid_size ** 3 // chunk) * chunk
+    out = []
+    for cas in range(cascades):
+        half = min(2 ** cas, bound) / grid_size
+        u = torch.rand((n, 3), generator=generator, device=generator.device)
+        out.append(u * (2.0 * half) - half)
+    return out
+
+
+@torch.no_grad()
+def update_host(state: OccupancyGrid, chunk_sigma_fn, draws, *,
+                grid_size: int, cascades: int, density_thresh: float = 0.01,
+                decay: float = 0.95, chunk: int = 131072) -> OccupancyGrid:
+    """Full grid refresh as a host loop over slices of ``chunk`` cells.
+
+    chunk_sigma_fn(start, noise [chunk, 3], cas) -> [chunk] scaled sigmas
+    of the cells [start, start + chunk) (``chunk_points`` gives their
+    points); draws: per cascade, the jitter of every slice in order
+    (``host_draws``).  Every cell is re-sampled, so all trained cells
+    take part in the EMA."""
+    H = grid_size
+    tmp = torch.zeros((cascades, H ** 3), dtype=torch.float32,
+                      device=state.density.device)
+    for cas in range(cascades):
+        for start in range(0, H ** 3, chunk):
+            sig = chunk_sigma_fn(start, draws[cas][start:start + chunk],
+                                 cas).reshape(-1)
+            end = min(start + chunk, H ** 3)
+            tmp[cas, start:end] = sig[:end - start]
+    return _finalize_update(state, tmp, decay, density_thresh)
 
 
 def sparse_draws(generator: torch.Generator, n_cells: int, *,

@@ -25,12 +25,14 @@ lockstep; their tensor-parallel MLPs reduce over the model group.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from ..data.rays import get_rays
-from ..render.renderer import (PrepassState, RenderConfig, _bind,
-                               _frame_buffer_packed, render_image,
-                               render_rays)
+from ..render.renderer import (DEFERRED_IGNORED, PrepassState,
+                               RenderConfig, _bind, _frame_buffer_packed,
+                               render_image, render_rays)
 from .sharding import Mesh
 
 
@@ -53,7 +55,7 @@ def render_image_sharded(field_apply, field_static, params, occ, pose,
     selections in place of the kernels (see ``render_rays_proxy``).
     ``deferred_apply``: the field's deferred stage pair (see
     ``render_image``), which each band's chunks run; the chunk-split
-    fallback ignores it, as the JAX package's does.
+    fallback ignores it, as the JAX package's does, with a warning.
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: this rank's live rays, chunks: this rank's chunks)."""
     if density is not None and cfg.infer_mode == "proxy" \
@@ -68,6 +70,8 @@ def render_image_sharded(field_apply, field_static, params, occ, pose,
                                     plain_select=plain_select)
         if out is not None:
             return out
+    if deferred_apply is not None:
+        warnings.warn(DEFERRED_IGNORED["chunks"])
     return _render_sharded_chunks(field_apply, field_static, params, occ,
                                   pose, intrinsics, H, W, cfg, mesh,
                                   bg_color=bg_color)

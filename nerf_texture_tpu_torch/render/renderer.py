@@ -19,7 +19,10 @@ occupancy march -> the compacted sample pool (or the dense [N, K] grid)
 
 The JAX module's ``jit`` programs, ``lax.while_loop`` and
 ``frame_one_program`` are TPU dispatch machinery; here they are one
-Python loop, and its last chunk is simply shorter (no padding).  The
+Python loop.  As in JAX, every chunk holds ``ray_chunk`` rays (the last
+is padded with the last live ray): the MLPs' GEMM kernels on the card
+depend on the row count, and fixed rows keep a ray's result the same
+whichever chunk holds it (a band frame is the single-rank frame).  The
 ``id()``-keyed prepass and corner-table caches become the explicit
 ``PrepassState`` that the caller builds once per grid.
 
@@ -42,7 +45,8 @@ Deferred (per-ray) shading (``RenderConfig.deferred``; SNeRG, arXiv:
 pair ``deferred_apply`` = (s1, s2), stage 1 gives sigma and a flat
 feature row a survivor, the composite weights average the rows of each
 ray, and stage 2 shades once a ray.  The pool and AABB-hit paths ignore
-it, as the JAX module's do.
+it, as the JAX module's do, with a warning (``DEFERRED_IGNORED``); a
+field whose stage 1 reads anchor frames needs ``anchor_per_sample``.
 """
 
 from __future__ import annotations
@@ -110,6 +114,31 @@ class RenderConfig:
         cascades, the other fields as given or their defaults."""
         cascades = 1 + math.ceil(math.log2(max(bound, 1.0)))
         return RenderConfig(bound=bound, cascades=cascades, **kw)
+
+
+# the message of each path that renders without the deferred stages it
+# was given (one text each, so the default warnings filter shows it once)
+DEFERRED_IGNORED = {
+    "pool": "render_image: the pool path (infer_mode='pool', or no density "
+            "grid) ignores deferred=True and shades every sample",
+    "aabb": "render_image: the AABB-hit path (a grid of more than one "
+            "cascade) ignores deferred=True and shades every sample",
+    "chunks": "render_image_sharded: the chunk-split fallback (no density "
+              "grid, the pool path, more than one cascade or a background "
+              "image) ignores deferred=True and shades every sample",
+}
+
+
+def _check_deferred(cfg: "RenderConfig", anchor, deferred) -> None:
+    """Deferred stage 1 of an anchored field reads each survivor's frames,
+    which the proxy tail computes only with ``anchor_per_sample``."""
+    if deferred is not None and anchor is not None \
+            and not cfg.anchor_per_sample:
+        raise ValueError(
+            "deferred=True needs anchor_per_sample=True on a field with "
+            "anchor frames: the deferred stage 1 reads each survivor's "
+            "frames, and anchor_per_sample=False anchors once a ray; set "
+            "anchor_per_sample=True or deferred=False")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -389,6 +418,7 @@ def render_rays_proxy(field_fn, dens8, rays_o, rays_d, nears, fars,
     ``render_rays``, on the survivors (see ``_proxy_tail``).
     ``deferred_fns`` (s1, s2): deferred shading on every selection route
     (see ``_proxy_tail``)."""
+    _check_deferred(cfg, anchor_fn, deferred_fns)
     K1 = cfg.proxy_samples
     cdf = cfg.infer_cdf and cfg.proxy_pallas and K1 == 0
     if cfg.infer_cdf and not cfg.proxy_pallas and K1 == 0:
@@ -860,16 +890,18 @@ def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
                 t0_d, t1_d, prepass: PrepassState, cfg: RenderConfig, *,
                 B: int, W: int, Wb: int, chunk: int, row0: int = 0,
                 plain_select: bool = False) -> torch.Tensor:
-    """Gather-render-scatter for the live rays perm[start:start+chunk]
-    (the last chunk is shorter): the proxy render over the corner table
-    (deferred with ``fns``' stage pair), or without one the pool render
-    (march of the grid's occupancy within the prepass span, compacted
-    pool, two-phase with ``fns``' sigma and colour functions).
+    """Gather-render-scatter for the live rays perm[start:start+chunk]:
+    the proxy render over the corner table (deferred with ``fns``' stage
+    pair), or without one the pool render (march of the grid's occupancy
+    within the prepass span, compacted pool, two-phase with ``fns``'
+    sigma and colour functions).  Every chunk holds ``chunk`` rays, as
+    in the JAX package: the last one is padded with the last live ray
+    (``_chunk_rows``), and only its live rows are written back.
     ``frame``'s rgb lanes still hold the background of every unwritten
     ray, so the chunk's bg gather reads it; the frame is updated in place
     and returned."""
     field_fn, anchor_fn, sigma_fn, color_fn, deferred_fns = fns
-    idx_c = perm[start:min(start + chunk, count)]
+    idx_c = _chunk_rows(perm, start, chunk, count)
     ro, rd = _chunk_rays(pose3, intr, idx_c, row0, W)
     bg_c = frame[idx_c, :3]
     idx_b = (idx_c // (W * B)) * Wb + (idx_c % W) // B if B > 1 else idx_c
@@ -889,9 +921,29 @@ def _chunk_body(fns, pose3, intr, frame, perm, count: int, start: int,
             pool_mean=(cfg.pool_mean_samples_infer
                        if cfg.pool_mean_samples else 0),
             pool_rays=chunk)
-    frame[idx_c] = torch.cat([out["image"], out["depth"][:, None],
-                              out["weights_sum"][:, None]], dim=-1)
+    _write_rows(frame, idx_c, out, count - start)
     return frame
+
+
+def _chunk_rows(live: torch.Tensor, start: int, chunk: int,
+                count: int) -> torch.Tensor:
+    """The [chunk] entries live[start:start + chunk] of a list of
+    ``count`` live rays (``count`` >= 1), the last chunk padded with the
+    last live ray: a chunk's row count never depends on the live count
+    (the GEMM kernels of the MLPs on the card do).  A whole chunk is a
+    view of ``live``."""
+    if start + chunk <= count:
+        return live[start:start + chunk]
+    return torch.cat([live[start:count],
+                      live[count - 1:count].expand(start + chunk - count)])
+
+
+def _write_rows(frame, idx_c, out, live: int):
+    """Scatter a chunk's first ``live`` rows (the rest repeat the last
+    live ray) into the packed frame."""
+    m = min(live, idx_c.shape[0])
+    frame[idx_c[:m]] = torch.cat([out["image"][:m], out["depth"][:m, None],
+                                  out["weights_sum"][:m, None]], dim=-1)
 
 
 def _bind(params, field_static, field_apply, anchor_apply, sigma_apply,
@@ -943,9 +995,10 @@ def _render_aabb_hits(fns, frame, pose, intr, aabb, prepass: PrepassState,
                       cfg: RenderConfig, *, H: int, W: int, chunk: int):
     """The frame of a grid without a dilated prepass grid (more than one
     cascade): every pixel's ray against the occupied AABB, one host sync
-    for the hit count, then the hits in pixel order in chunks through
+    for the hit count, then the hits in pixel order in chunks of
+    ``chunk`` rays (the last padded with the last hit, as in JAX) through
     ``render_rays`` (the pool path; its slab test clamps each ray to the
-    AABB; ``fns``' deferred stages are not used, as in JAX).  Returns
+    AABB).  Returns
     (frame, live rays, chunks)."""
     field_fn, anchor_fn, sigma_fn, color_fn, _ = fns
     rays = get_rays(pose, intr, H, W)
@@ -955,7 +1008,7 @@ def _render_aabb_hits(fns, frame, pose, intr, aabb, prepass: PrepassState,
     count = int(live.numel())
     n_chunks = -(-count // chunk)
     for c in range(n_chunks):
-        idx_c = live[c * chunk:(c + 1) * chunk]
+        idx_c = _chunk_rows(live, c * chunk, chunk, count)
         out = render_rays(
             field_fn, prepass.occ, rays["rays_o"][idx_c],
             rays["rays_d"][idx_c], cfg, max_samples=cfg.max_samples_infer,
@@ -965,8 +1018,7 @@ def _render_aabb_hits(fns, frame, pose, intr, aabb, prepass: PrepassState,
             pool_mean=(cfg.pool_mean_samples_infer
                        if cfg.pool_mean_samples else 0),
             pool_rays=chunk)
-        frame[idx_c] = torch.cat([out["image"], out["depth"][:, None],
-                                  out["weights_sum"][:, None]], dim=-1)
+        _write_rows(frame, idx_c, out, count - c * chunk)
     return frame, count, n_chunks
 
 
@@ -995,7 +1047,9 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
     ``deferred_apply`` (s1(params, x, field_static, frames) -> (sigma,
     feature rows), s2(params, fbar, d, field_static) -> rgb): deferred
     shading on the proxy path when given (the caller passes it when
-    ``cfg.deferred``); the pool and AABB-hit paths ignore it.
+    ``cfg.deferred``); the pool and AABB-hit paths ignore it with a
+    warning (``DEFERRED_IGNORED``), and with ``anchor_apply`` it needs
+    ``cfg.anchor_per_sample`` (a ``ValueError`` otherwise).
     With ``frame_rows`` (the height of a frame of one cascade), one band
     of it: the H rows from pixel row ``row0`` on (a multiple of
     ``prepass_block``), through the band's own block prepass and chunk
@@ -1006,6 +1060,10 @@ def render_image(field_apply, field_static, params, prepass: PrepassState,
 
     Returns dict(image [H, W, 3], depth [H, W], weights_sum [H, W],
     live: live rays rendered, chunks: chunks rendered)."""
+    _check_deferred(cfg, anchor_apply, deferred_apply)
+    if deferred_apply is not None and prepass.dens8 is None:
+        warnings.warn(DEFERRED_IGNORED["aabb" if prepass.occ_dil is None
+                                       else "pool"])
     device = prepass.device
     n = H * W
     chunk = min(cfg.ray_chunk, n)

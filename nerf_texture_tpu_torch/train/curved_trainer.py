@@ -177,6 +177,15 @@ def init_curved_state(generator: torch.Generator, ccfg: CurvedFieldConfig,
                    if n_frames is not None else None))
 
 
+def init_state(generator: torch.Generator, ccfg: CurvedFieldConfig,
+               rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
+               n_frames: int) -> CurvedTrainState:
+    """The JAX package's ``init_state`` (key, ccfg, rcfg, tcfg, n_frames):
+    ``init_curved_state`` with seeded params for ``n_frames`` frames (its
+    fifth positional argument is ``params``, so it is not an alias)."""
+    return init_curved_state(generator, ccfg, rcfg, tcfg, n_frames=n_frames)
+
+
 class CurvedBatch(NamedTuple):
     """The random draws of one curved training step.  With the error map
     the pixels are drawn from it (``emap``), and ``inds`` is None."""
@@ -484,6 +493,20 @@ def curved_train_step(state: CurvedTrainState, batch: CurvedBatch,
         state.error_map[batch.frame, cells] = 0.1 * emap[cells] \
             + 0.9 * per_ray
     return {"loss": loss}
+
+
+def curved_train_scan(state: CurvedTrainState, batches, field_state,
+                      poses, images, intrinsics, **kw):
+    """K train steps in a row, one a batch of ``batches`` (JAX's
+    ``curved_train_scan`` fuses them into one ``lax.scan`` program; here
+    it is a loop of ``curved_train_step``, keyword arguments as there).
+    Updates ``state`` in place and returns (state, {"loss": the last
+    step's loss, "loss_mean": the mean over the K steps}), device
+    scalars."""
+    losses = torch.stack([
+        curved_train_step(state, b, field_state, poses, images, intrinsics,
+                          **kw)["loss"] for b in batches])
+    return state, {"loss": losses[-1], "loss_mean": torch.mean(losses)}
 
 
 def distill_loss(params, occ: OccupancyGrid, batch: DistillBatch,

@@ -16,3 +16,22 @@ def psnr(pred, gt) -> float:
     if mse <= 1e-12:
         return 99.0
     return -10.0 * float(np.log10(mse))
+
+
+class PSNRMeter:
+    """Running mean of ``psnr`` over ``update(pred, gt)`` calls."""
+
+    def __init__(self):
+        self.v = 0.0
+        self.n = 0
+
+    def update(self, pred, gt):
+        self.v += psnr(pred, gt)
+        self.n += 1
+
+    @property
+    def average(self) -> float:
+        return self.v / max(self.n, 1)
+
+    def clear(self):
+        self.v, self.n = 0.0, 0

@@ -1,8 +1,10 @@
-"""Seeding and the metrics log (port of ``seed_everything`` and
-``MetricsLogger`` of ``nerf_texture_tpu/utils/misc.py``)."""
+"""Seeding, the metrics log and a profiler trace (port of
+``seed_everything``, ``MetricsLogger`` and ``profile_trace`` of
+``nerf_texture_tpu/utils/misc.py``)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -36,3 +38,19 @@ class MetricsLogger:
         with open(self.txt, "a") as f:
             f.write(f"[{rec['step']}] " + " ".join(
                 f"{k}={v:.6g}" for k, v in scalars.items()) + "\n")
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """torch.profiler trace of the block (host ops, and the card's kernels
+    when there is one), written to ``log_dir/trace.json`` in the Chrome
+    trace format on exit; yields the profiler."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

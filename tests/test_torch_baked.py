@@ -356,3 +356,21 @@ def test_baked_fallbacks_and_unported(trainers):
     np.testing.assert_array_equal(
         _np(pool["image"]),
         _np(tt.render_frame(pose, use_ema=False, parity=True)["image"]))
+
+
+def test_deferred_baked_frame_needs_anchor_per_sample(trainers):
+    """deferred=True with anchor_per_sample=False on the baked frame (the
+    JAX package fails there with a TypeError in its stage 1): a
+    ValueError naming both options."""
+    tt = trainers["tt"]
+    rcfg, saved_bake, st = tt.rcfg, tt._bake, tt.state
+    tt._bake = [(st.params, st.step, st.occ, 16,
+                 _port_bake(trainers["bake_j"]), _t(trainers["ext_j"]))]
+    try:
+        tt.rcfg = dataclasses.replace(rcfg, deferred=True,
+                                      anchor_per_sample=False)
+        with pytest.raises(ValueError,
+                           match="deferred=True.*anchor_per_sample"):
+            tt.render_frame(tt.dataset.poses[2], use_ema=False, baked=True)
+    finally:
+        tt.rcfg, tt._bake = rcfg, saved_bake

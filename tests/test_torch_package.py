@@ -70,6 +70,15 @@ assert not bad, bad
 par = {n for n in names if n.startswith("nerf_texture_tpu_torch.parallel.")}
 assert par == {"nerf_texture_tpu_torch.parallel." + m for m in
                ("distributed", "eval", "sharding", "train")}, par
+# the port's shell pipeline, its replay and the frame A/B (scripts
+# beside the package) too
+sys.path.insert(0, "scripts")
+import torch_shell_pipeline
+import torch_shell_replay
+import torch_frame_ab
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "nerf_texture_tpu"))
+assert not bad, bad
 """
 
 

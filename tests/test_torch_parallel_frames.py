@@ -21,7 +21,12 @@ NGP frames (seeded weights, a fixture density shell, 24 x 24):
   single-rank ``render_image``;
 - a deferred band frame (the NGP's deferred stages, block 4 with the
   tau carve) at data 2 within 1e-4 of the port's single-rank deferred
-  frame.
+  frame;
+- at a ray chunk of 72 (no band's or frame's live count a multiple of
+  it), the per-sample and the deferred band frames at data 2 equal the
+  single-rank frame bit for bit: every chunk holds 72 rays (the last
+  padded with the last live ray, as in JAX), so a ray's MLP rows go
+  through matrix products of one shape whichever chunk holds it.
 """
 
 import jax
@@ -52,6 +57,9 @@ BANDS = dict(SEAMS, proxy_samples=0, proxy_refined=8, infer_color_cap=4,
 CASES = {"chunks": dict(SEAMS), "band1": dict(BANDS),
          "band4": dict(BANDS, prepass_block=4, prepass_tau_cull=0.1)}
 HW = 24
+# a ray chunk that divides no band's live count nor the frame's
+PADDED_CHUNK = 72
+PADDED = {"band4_c72": False, "band4_c72_deferred": True}
 
 def _ngp_cases():
     ds = JaxDS(n_frames=1, H=HW, W=HW)
@@ -104,9 +112,12 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ranks")
     ranks = R.start_ranks(R.render_job, 4, {"cases": cases}, tmp)
     band4 = cases["band4"]
-    deferred = R.start_ranks(R.render_job, 2, {"cases": {"band4_deferred": {
-        **band4, "rcfg": RenderConfig(**dict(CASES["band4"],
-                                             deferred=True))}}}, tmp)
+    deferred = R.start_ranks(R.render_job, 2, {"cases": {
+        "band4_deferred": {**band4, "rcfg": RenderConfig(
+            **dict(CASES["band4"], deferred=True))},
+        **{name: {**band4, "rcfg": RenderConfig(
+            **dict(CASES["band4"], ray_chunk=PADDED_CHUNK, deferred=d))}
+           for name, d in PADDED.items()}}}, tmp)
     want = _jax_frames(cases)
     return {"jax": want, "ngp": ranks.wait(), "deferred": deferred.wait()}
 
@@ -143,3 +154,13 @@ def test_ngp_deferred_band_frame_matches_single_rank(runs):
     # deferred: not the per-sample band frame of the same view (the
     # seeded features are near zero, so only a little off)
     assert np.abs(got["image"] - runs["ngp"][0]["band4"]["image"]).max() > 0
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_padded_band_frames_equal_the_single_rank_frame(runs, name):
+    ranks = runs["deferred"]
+    got = ranks[0][name]
+    np.testing.assert_array_equal(ranks[1][name]["image"], got["image"])
+    assert got["chunks"] >= 2 and got["single_live"] % PADDED_CHUNK != 0
+    assert float(got["weights_sum"].max()) > 0.05
+    np.testing.assert_array_equal(got["image"], got["single"])

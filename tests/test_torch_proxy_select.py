@@ -482,3 +482,52 @@ def test_deferred_frame_through_the_kernel_equals_plain(cuda_device,
     assert float(want["weights_sum"].max()) > 0.5
     for k in ("image", "depth", "weights_sum"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selection", ["cdf", "topk"])
+def test_padded_frame_through_the_kernel_equals_plain(cuda_device, selection,
+                                                      monkeypatch):
+    """A frame whose live count is not a multiple of the ray chunk: every
+    chunk, the last included, holds ray_chunk rays (padded with the last
+    live ray), the kernel launches once a chunk, and the frame equals its
+    plain-selection frame bit for bit."""
+    from nerf_texture_tpu_torch.data.poses import orbit_pose
+    from nerf_texture_tpu_torch.data.synthetic import (shell_occupancy,
+                                                       sphere_intrinsics)
+    from nerf_texture_tpu_torch.models import ngp
+    from nerf_texture_tpu_torch.render import renderer
+    from nerf_texture_tpu_torch.render.renderer import RenderConfig
+    from nerf_texture_tpu_torch.train.trainer import render_frame
+
+    rows = []
+    proxy = renderer.render_rays_proxy
+
+    def counted(field_fn, dens8, rays_o, *a, **kw):
+        rows.append(rays_o.shape[0])
+        return proxy(field_fn, dens8, rays_o, *a, **kw)
+
+    monkeypatch.setattr(renderer, "render_rays_proxy", counted)
+    mcfg = ngp.NGPConfig(bound=1.0, num_levels=4, level_dim=4,
+                         log2_bricks=10, desired_resolution=256)
+    params = ngp.init(torch.Generator(device=cuda_device).manual_seed(0),
+                      mcfg)
+    params["grid"] = params["grid"] * 1e4
+    rcfg = RenderConfig(bound=1.0, cascades=1, grid_size=32, ray_chunk=1000,
+                        proxy_samples=0, proxy_refined=24, prepass_block=8,
+                        prepass_tau_cull=0.1, infer_cdf=selection == "cdf",
+                        infer_color_cap=4 if selection == "cdf" else 8)
+    kernel = proxy_select_cdf if selection == "cdf" else proxy_select
+    occ = shell_occupancy(32, device=cuda_device)
+    args = (params, occ, orbit_pose(1.2, 0.7, 2.0),
+            sphere_intrinsics(128, 128), 128, 128, mcfg, rcfg)
+    before = kernel.launches
+    got = render_frame(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == got["chunks"] >= 2
+    assert got["live"] % rcfg.ray_chunk != 0
+    assert rows == [rcfg.ray_chunk] * got["chunks"]
+    want = render_frame(*args, plain_select=True)
+    assert kernel.launches - before == got["chunks"]
+    for k in ("image", "depth", "weights_sum"):
+        assert torch.equal(got[k], want[k]), k

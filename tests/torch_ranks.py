@@ -279,6 +279,7 @@ def render_job(rank, world, payload):
                     case["pose"], case["intr"], case["H"], case["W"],
                     case["rcfg"], deferred_apply=deferred)
             out[name]["single"] = _np(single["image"])
+            out[name]["single_live"] = single["live"]
     return out
 
 
