@@ -1168,14 +1168,16 @@ def deferred_frames(name, render, poses, gt, kernel, card: str) -> dict:
     return launches
 
 
-def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
+def curved_train_phase(dev, card: str, ds, timing: dict,
+                       seed: int = 7) -> dict:
     """Phase 10: curved training at the width of bench.py's curved arm
     (its schedule: initialize_states(1), train(17), a timed train(48),
-    the rest to 700 steps), then the trained field at the novel pose: the
-    live, pool and EMA parity frames, the bake, the baked frames at cap 5
-    K 16 and cap 6 K 20, each PSNR gated against the JAX package's cell.
-    Returns the selection launches of the trained live and baked frames
-    and the selection error at the baked shapes, and the trainer."""
+    the rest to 700 steps; the trainer seeded ``seed``), then the trained
+    field at the novel pose: the live, pool and EMA parity frames, the
+    bake, the baked frames at cap 5 K 16 and cap 6 K 20, each PSNR gated
+    against the JAX package's cell.  Returns the selection launches of
+    the trained live and baked frames, the selection error at the baked
+    shapes and the PSNR cells, and the trainer."""
     from nerf_texture_tpu_torch.data.poses import orbit_pose
     from nerf_texture_tpu_torch.geometry.mesh import make_icosphere
     from nerf_texture_tpu_torch.geometry.projector import MeshProjector
@@ -1215,7 +1217,7 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
     tcfg = CurvedTrainConfig(**CURVED_TRAIN)
     tr = CurvedTrainer(ds, mesh_field.make_state(MeshProjector(
         make_icosphere(4, radius=0.5), device=dev)), ccfg, rcfg, tcfg,
-        seed=7, device=dev)
+        seed=seed, device=dev)
     tr._get_near_cells()                     # host set-up, timed in phase 9
     tr._anchor_table()
     torch.cuda.synchronize()
@@ -1368,7 +1370,8 @@ def curved_train_phase(dev, card: str, ds, timing: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = True
     return {"live": live_launches, "baked": baked_launches,
             "baked_deferred": deferred_launches,
-            "max_abs_err": err, "psnr_live": psnrs["live"]}, tr
+            "max_abs_err": err, "psnr_live": psnrs["live"],
+            "psnrs": psnrs}, tr
 
 
 def pool_minimum(tr, pose, image, card: str):
@@ -4435,10 +4438,11 @@ def background_phase(dev, card: str, ds, packed: dict) -> dict:
     return launches
 
 
-def ngp_train_render(dev, card: str, mcfg, rcfg, lap):
+def ngp_train_render(dev, card: str, mcfg, rcfg, lap, seed: int = 7):
     """Phases 7 and 8: the NGP trained at full width on
-    SyntheticSphereDataset(8 frames, 800x800), and the trained field
-    through both selections; ``lap(name)`` closes each phase's wall.
+    SyntheticSphereDataset(8 frames, 800x800) from a trainer seeded
+    ``seed``, and the trained field through both selections;
+    ``lap(name)`` closes each phase's wall.
     Returns (the dataset, the kernel launches of each selection's frames,
     the PSNRs of its training and novel views)."""
     from nerf_texture_tpu_torch.data.poses import orbit_pose
@@ -4458,7 +4462,7 @@ def ngp_train_render(dev, card: str, mcfg, rcfg, lap):
     ds = SyntheticSphereDataset(n_frames=8, H=800, W=800)
     H, W = ds.H, ds.W
     tcfg = TrainConfig(**BENCH_TRAIN)
-    trainer = Trainer(ds, mcfg, rcfg, tcfg, seed=7, device=dev)
+    trainer = Trainer(ds, mcfg, rcfg, tcfg, seed=seed, device=dev)
     torch.cuda.synchronize()
     print(f"train: dataset + init {time.perf_counter() - t0:.2f} s; "
           f"{ds.num_frames} frames {H}x{W}, {tcfg.num_rays} rays/step, pool "

@@ -141,7 +141,7 @@ class CurvedTrainState:
 
 def init_curved_state(generator: torch.Generator, ccfg: CurvedFieldConfig,
                       rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
-                      params=None, n_frames: int | None = None
+                      n_frames: int | None = None, params=None
                       ) -> CurvedTrainState:
     """Fresh state on the generator's device: seeded params (or the given
     ones, e.g. converted from JAX, copied), zero Adam moments, the EMA
@@ -177,13 +177,8 @@ def init_curved_state(generator: torch.Generator, ccfg: CurvedFieldConfig,
                    if n_frames is not None else None))
 
 
-def init_state(generator: torch.Generator, ccfg: CurvedFieldConfig,
-               rcfg: RenderConfig, tcfg: "CurvedTrainConfig",
-               n_frames: int) -> CurvedTrainState:
-    """The JAX package's ``init_state`` (key, ccfg, rcfg, tcfg, n_frames):
-    ``init_curved_state`` with seeded params for ``n_frames`` frames (its
-    fifth positional argument is ``params``, so it is not an alias)."""
-    return init_curved_state(generator, ccfg, rcfg, tcfg, n_frames=n_frames)
+# the JAX package's name (key, ccfg, rcfg, tcfg, n_frames)
+init_state = init_curved_state
 
 
 class CurvedBatch(NamedTuple):

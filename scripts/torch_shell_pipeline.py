@@ -74,6 +74,32 @@ SELECTIONS = (("cdf", dict(infer_cdf=True)),
               ("topk", dict(infer_cdf=False, infer_color_cap=8)))
 
 
+def ngp_configs(P: dict) -> tuple[dict, dict, dict]:
+    """Stage 1's NGPConfig, RenderConfig and TrainConfig keywords (the
+    JAX package's tests/test_parity_pipeline.py:90-100)."""
+    return (dict(bound=1.0, num_levels=6, level_dim=2, base_resolution=16,
+                 desired_resolution=P["desired_res"],
+                 log2_hashmap_size=P["hashmap"], hidden_dim=64,
+                 hidden_dim_color=64),
+            dict(bound=1.0, cascades=1, grid_size=32, max_steps=96,
+                 max_samples_train=48, max_samples_infer=64, ray_chunk=1600,
+                 infer_mode="pool"),
+            dict(lr=1e-2, total_steps=P["ngp_steps"], num_rays=512,
+                 grid_update_interval=16, grid_decay=0.85))
+
+
+def curved_configs(P: dict, h: float) -> tuple[dict, dict, dict]:
+    """Stage 4's MeshFieldConfig, CurvedFieldConfig (but the field) and
+    CurvedTrainConfig keywords (tests/test_parity_pipeline.py:158-169);
+    its RenderConfig is stage 1's."""
+    return (dict(num_levels=4, level_dim=2, base_resolution=32,
+                 desired_resolution=P["desired_res"],
+                 log2_bricks=P["bricks"], h_threshold=h, clustering=False),
+            dict(light_model="SH", hidden_dim=32, geo_feat_dim=15),
+            dict(lr=1e-2, total_steps=P["curved_steps"], num_rays=512,
+                 grid_update_interval=16, grid_full_updates=2))
+
+
 def holdout_gt(ds, pose) -> np.ndarray:
     """The shell's ground truth at ``pose`` over white, [H, W, 3] f32."""
     img = render_gt_shell(pose, ds.intrinsics, ds.H, ds.W, ds.base,
@@ -194,16 +220,10 @@ def scene(P: dict):
 def ngp_stage(P, ds, pose, gt, seed, device, log):
     """Stage 1: the coarse NGP, trained; its PSNR at the held-out pose.
     Returns (trainer, render config)."""
-    mcfg = ngp_mod.NGPConfig(bound=1.0, num_levels=6, level_dim=2,
-                             base_resolution=16,
-                             desired_resolution=P["desired_res"],
-                             log2_hashmap_size=P["hashmap"], hidden_dim=64,
-                             hidden_dim_color=64)
-    rcfg = RenderConfig(bound=1.0, cascades=1, grid_size=32, max_steps=96,
-                        max_samples_train=48, max_samples_infer=64,
-                        ray_chunk=1600, infer_mode="pool")
-    tcfg = TrainConfig(lr=1e-2, total_steps=P["ngp_steps"], num_rays=512,
-                       grid_update_interval=16, grid_decay=0.85)
+    mk, rk, tk = ngp_configs(P)
+    mcfg = ngp_mod.NGPConfig(**mk)
+    rcfg = RenderConfig(**rk)
+    tcfg = TrainConfig(**tk)
     tr = Trainer(ds, mcfg, rcfg, tcfg, seed=3 + seed, device=device)
     tr.train(P["ngp_steps"])
     out = tr.render_frame(pose, use_ema=False)
@@ -258,15 +278,9 @@ def curved_trainer(P, ds, mp, h: float, rcfg, seed, device):
     from nerf_texture_tpu_torch.train.curved_trainer import (
         CurvedTrainConfig, CurvedTrainer)
 
-    fcfg = MeshFieldConfig(num_levels=4, level_dim=2, base_resolution=32,
-                           desired_resolution=P["desired_res"],
-                           log2_bricks=P["bricks"], h_threshold=h,
-                           clustering=False)
-    ccfg = CurvedFieldConfig(field=fcfg, light_model="SH", hidden_dim=32,
-                             geo_feat_dim=15)
-    ctcfg = CurvedTrainConfig(lr=1e-2, total_steps=P["curved_steps"],
-                              num_rays=512, grid_update_interval=16,
-                              grid_full_updates=2)
+    fk, ck, tk = curved_configs(P, h)
+    ccfg = CurvedFieldConfig(field=MeshFieldConfig(**fk), **ck)
+    ctcfg = CurvedTrainConfig(**tk)
     ctr = CurvedTrainer(ds, mesh_field.make_state(mp), ccfg, rcfg, ctcfg,
                         seed=4 + seed, device=device)
     ctr.initialize_states(1)

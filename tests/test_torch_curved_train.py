@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_draws import curved_batch, curved_grid_noise
 from nerf_texture_tpu.data.rays import get_rays as jax_get_rays
 from nerf_texture_tpu.data.rays import sample_ray_indices as jax_sample
 from nerf_texture_tpu.data.synthetic import SyntheticSphereDataset
@@ -280,16 +281,8 @@ def _jax_keys(key):
 
 def _batch(key, frame, tcfg):
     """The draws JAX's train step takes from ``key``, as a CurvedBatch."""
-    k_pix, k_perturb, k_bg, k_noise, k_reg = _jax_keys(key)
-    n = tcfg.num_rays
-    inds, _ = jax_sample(k_pix, HW, HW, n)
-    rows = tct.noise_rows(RenderConfig(**RENDER), n)
-    return tct.CurvedBatch(
-        frame=torch.tensor(int(frame)), inds=_t(inds, torch.int64),
-        u=_t(jax.random.uniform(k_perturb, (n,), jnp.float32)),
-        bg=_t(jax.random.uniform(k_bg, (n, 3))),
-        noise=_t(jax.random.normal(k_noise, (rows, L * FIELD["level_dim"]))),
-        level=int(jax.random.randint(k_reg, (), 0, L)))
+    return curved_batch(key, frame, tcfg, RenderConfig(**RENDER), HW, HW,
+                        tmf.MeshFieldConfig(**FIELD))
 
 
 def _jax_loss(params, jstate, tj, frame, key, cj, rj, tcfg):
@@ -409,10 +402,7 @@ def _grad_tree(params):
 
 def _grid_noise(key, n):
     """The jitter JAX's sparse refresh draws from ``key`` (one chunk)."""
-    half = 1.0 / RENDER["grid_size"]
-    _, k = jax.random.split(key)
-    return np.array(jax.random.uniform(k, (262144, 3), minval=-half,
-                                       maxval=half))[:n]
+    return curved_grid_noise(key, n, RENDER["grid_size"])
 
 
 def _heldout(tj, tt, parity):

@@ -70,27 +70,33 @@ assert not bad, bad
 par = {n for n in names if n.startswith("nerf_texture_tpu_torch.parallel.")}
 assert par == {"nerf_texture_tpu_torch.parallel." + m for m in
                ("distributed", "eval", "sharding", "train")}, par
-# the port's shell pipeline, its replay and the frame A/B (scripts
-# beside the package) too
+# every script of the port beside the package (scripts/torch_*.py, the
+# ones that run on the card) too
+import glob, os
 sys.path.insert(0, "scripts")
-import torch_shell_pipeline
-import torch_shell_replay
-import torch_frame_ab
+scripts = sorted(glob.glob("scripts/torch_*.py"))
+for path in scripts:
+    importlib.import_module(os.path.basename(path)[:-3])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "nerf_texture_tpu"))
 assert not bad, bad
+print(len(scripts), "scripts")
 """
 
 
 def test_port_imports_no_jax():
     """Every module of the port imports, and pulls in neither JAX, the JAX
-    package, nor an image library (OpenCV, PIL, imageio)."""
+    package, nor an image library (OpenCV, PIL, imageio); every
+    ``scripts/torch_*.py`` imports without JAX or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[0]) >= 43, res.stdout
+    # the shell pipeline, its replay, the frame A/B, the card-vs-CPU
+    # training, the bench cells and the CLI spread among them
+    assert int(res.stdout.split()[2]) >= 10, res.stdout
 
 
 _IMPORT_SURFACES = """

@@ -49,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_draws import curved_grid_noise
 from nerf_texture_tpu.data.synthetic import SyntheticSphereDataset
 from nerf_texture_tpu.geometry import mesh as jmesh
 from nerf_texture_tpu.geometry import shape_tools as jst
@@ -362,10 +363,7 @@ def test_imported_frames_match(pipeline, mode):
 
 
 def _grid_noise(key, n, rj):
-    _, k = jax.random.split(key)
-    half = 1.0 / rj.grid_size
-    return np.array(jax.random.uniform(k, (65536, 3), minval=-half,
-                                       maxval=half))[:n]
+    return curved_grid_noise(key, n, rj.grid_size, chunk=65536)
 
 
 @pytest.mark.parametrize("mode", MODES)

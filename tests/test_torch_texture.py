@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_draws import curved_grid_noise
 from nerf_texture_tpu.data.synthetic import SyntheticSphereDataset
 from nerf_texture_tpu.geometry import mesh as jmesh
 from nerf_texture_tpu.geometry.projector import (
@@ -327,10 +328,7 @@ def test_sample_patches_matches(pipeline):
 def _grid_noise(key, n, rj):
     """The jitter of JAX's sparse refresh from ``key``: one chunk of
     65,536 cells (the import modes' chunk)."""
-    _, k = jax.random.split(key)
-    half = 1.0 / rj.grid_size
-    return np.array(jax.random.uniform(k, (65536, 3), minval=-half,
-                                       maxval=half))[:n]
+    return curved_grid_noise(key, n, rj.grid_size, chunk=65536)
 
 
 def _jax_load_patch(tj, path, patch_id, n_refresh):

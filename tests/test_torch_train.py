@@ -42,8 +42,8 @@ import optax
 import pytest
 import torch
 
+from jax_draws import ngp_batch, ngp_grid_draws
 from nerf_texture_tpu.data.rays import get_rays as jax_get_rays
-from nerf_texture_tpu.data.rays import sample_ray_indices as jax_sample
 from nerf_texture_tpu.data.synthetic import SyntheticSphereDataset
 from nerf_texture_tpu.models import ngp as jngp
 from nerf_texture_tpu.ops import occupancy as jocc
@@ -112,30 +112,12 @@ def _port_state(jstate):
 
 def _grid_draws(key, full):
     """The draws JAX's occupancy.update takes from ``key`` (one cascade)."""
-    half = 1.0 / GRID
-    n = GRID ** 3 // 4
-    if full:
-        k1, _ = jax.random.split(key)
-        noise = jax.random.uniform(k1, (GRID ** 3, 3), minval=-half,
-                                   maxval=half)
-        return [tocc.GridDraws(noise=_t(noise))]
-    k1, k2, k3, _ = jax.random.split(key, 4)
-    return [tocc.GridDraws(
-        noise=_t(jax.random.uniform(k3, (2 * n, 3), minval=-half,
-                                    maxval=half)),
-        cells=_t(jax.random.randint(k1, (n,), 0, GRID ** 3), torch.int64),
-        keys=_t(jax.random.uniform(k2, (GRID ** 3,))))]
+    return ngp_grid_draws(key, full, GRID)
 
 
 def _batch(frame, key):
     """The draws JAX's train_step takes from ``key``, as a port Batch."""
-    k_pix, k_perturb, k_bg = jax.random.split(key, 3)
-    n = TRAIN_KW["num_rays"]
-    inds, _ = jax_sample(k_pix, H, W, n)
-    return tt.Batch(frame=torch.tensor(int(frame)),
-                    inds=_t(inds, torch.int64),
-                    u=_t(jax.random.uniform(k_perturb, (n,), jnp.float32)),
-                    bg=_t(jax.random.uniform(k_bg, (3,))))
+    return ngp_batch(frame, key, H, W, TRAIN_KW["num_rays"])
 
 
 def _leaves_close(got, want, rel):
@@ -393,23 +375,7 @@ B2_T = dict(mcfg=tngp.NGPConfig(**B2_NGP), rcfg=tr.RenderConfig(**B2_RENDER),
 
 def _cascade_draws(key, full, cascades=2, bound=2.0):
     """The draws JAX's occupancy.update takes from ``key``, per cascade."""
-    out = []
-    n = GRID ** 3 // 4
-    for cas in range(cascades):
-        half = min(2 ** cas, bound) / GRID
-        if full:
-            k1, key = jax.random.split(key)
-            out.append(tocc.GridDraws(noise=_t(jax.random.uniform(
-                k1, (GRID ** 3, 3), minval=-half, maxval=half))))
-            continue
-        k1, k2, k3, key = jax.random.split(key, 4)
-        out.append(tocc.GridDraws(
-            noise=_t(jax.random.uniform(k3, (2 * n, 3), minval=-half,
-                                        maxval=half)),
-            cells=_t(jax.random.randint(k1, (n,), 0, GRID ** 3),
-                     torch.int64),
-            keys=_t(jax.random.uniform(k2, (GRID ** 3,)))))
-    return out
+    return ngp_grid_draws(key, full, GRID, cascades, bound)
 
 
 def _cascade_grid_exact(got, want):

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_draws import curved_grid_noise
 from test_torch_curved_train import _data
 from test_torch_vertex_encoder import (HW, make_setup, on_port_grids,
                                        port_state, step_kw, vertex_batch)
@@ -59,10 +60,7 @@ def _two_threads():
 def _grid_noise(key, n, grid_size):
     """The jitter of JAX's refresh without the anchor table (one chunk of
     65,536 cells) from ``key``."""
-    half = 1.0 / grid_size
-    _, k = jax.random.split(key)
-    return np.array(jax.random.uniform(k, (65536, 3), minval=-half,
-                                       maxval=half))[:n]
+    return curved_grid_noise(key, n, grid_size, chunk=65536)
 
 
 def _moments(opt, p):
