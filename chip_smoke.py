@@ -511,16 +511,27 @@ NGP_MESH_PROBES, NGP_MESH_TOL, NGP_MESH_COVER = 2000, 0.03, 0.9
 # 5e-4 (a patch covers 64x the area) and at most 40 iterations (0.7-1.1
 # s each on the card's host, scripts/torch_curved_synthesis.py; 60 set
 # 60.8% of the texels), which must set at least SURFACE_MIN_DONE of
-# them; unhash to >= 40,000 vertices (the template's 40,962 after two
-# subdivisions), cut from field_io's default of 100,000 (163,842 made,
-# 116 s of host set-up) so that phase 13 fits the smoke
+# them; unhash at field_io's default of >= 100,000 vertices (the
+# template's 163,842 after three subdivisions; its projector's tables
+# are built on the card, where the host builder took 116 s of set-up)
 SURFACE_DIR = os.path.join("build", "surfaces")
 SURFACE_BOX, SURFACE_MIN_VERTICES, SURFACE_SMOOTH = (0.5, 0.35, 0.25), \
     10000, 8
 SURFACE_RES = 512
 SURFACE_GAP, SURFACE_ITERS = 4e-3, 40
 SURFACE_MIN_DONE = 0.3
-UNHASH_MIN_VERTICES = 40000
+UNHASH_MIN_VERTICES = 100000
+# the grid-table kernels (csrc/spatial_build.cu) against their plain
+# versions on phase 12's box target (24,578 vertices) and the template
+# subdivided to >= GRID_CHECK_VERTICES (40,962): the cell lists and the
+# fallback lists bit for bit; each build's card seconds beside the plain (host) seconds, and the
+# kernels' device ms over GRID_TIMED calls.  Bounds: HBM3 3.35 TB/s for
+# the binning; the fallback's float64 operations (8 a pair) over the
+# H100 SXM's 34 TFLOP/s float64 outside the tensor cores (NVIDIA's data
+# sheet, 700 W).
+GRID_CHECK_VERTICES = 40000
+GRID_TIMED = 3
+F64_OPS_PER_S = 34e12
 # the narrow card-vs-CPU check of phase 12: phase 11's narrow files, the
 # target subdivided to >= 600 vertices, a 64^2 UV map, unhash to >= 2000
 # vertices
@@ -1683,10 +1694,15 @@ def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
     ``load_field`` + ``load_shape``, ``load_unhash`` and ``unhash``, each
     with 800x800 frames through proxy_select_cdf; then the narrow config
     on the card and on the CPU port on one CPU-written curved_mesh.npz.
-    Returns the selection launches of each import's frames."""
+    The grid-table kernels' launches are counted over the synthesis and
+    the imports, whose projectors build their tables on the card; then
+    the kernels are held against their plain versions
+    (``grid_tables_check``).  Returns the selection launches of each
+    import's frames and the grid-table kernels' JSON entries."""
     import resource
 
     import texture_synthesis_on_curved_surface_torch as syn_cli
+    from nerf_texture_tpu_torch import native
     from nerf_texture_tpu_torch.data.poses import orbit_pose
     from nerf_texture_tpu_torch.geometry import projector as proj
     from nerf_texture_tpu_torch.geometry.mesh import save_obj
@@ -1706,6 +1722,16 @@ def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
     curved_path = os.path.join(SURFACE_DIR, "curved_mesh.npz")
 
     # -- the target mesh and the curved synthesis ---------------------------
+    grid_fns = (native.build_vertex_grid, native.build_triangle_grid,
+                native.build_fallback)
+    for fn in grid_fns:
+        fn.launches = 0
+    grid_paths = {}
+
+    def grid_count(path: str, before: tuple):
+        grid_paths[path] = tuple(fn.launches - b
+                                 for fn, b in zip(grid_fns, before))
+
     t0 = time.perf_counter()
     target = surface_target()
     save_obj(target_path, target)
@@ -1714,10 +1740,12 @@ def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
     st = {}
     t0 = time.perf_counter()
+    before = tuple(fn.launches for fn in grid_fns)
     syn_cli.synthesise(field_path, target_path, grid_gap=SURFACE_GAP,
                        resolution=SURFACE_RES, device=dev,
                        max_iters=SURFACE_ITERS, progress=False,
                        out=curved_path, stats=st)
+    grid_count("surface_curved_synthesis_setup", before)
     syn_s = time.perf_counter() - t0
     it = max(st["iters"], 1)
     host_s = st["loop_s"] - st["device_s"]
@@ -1780,9 +1808,11 @@ def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
              "knn_normal + barycentric_mapping")):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        before = tuple(fn.launches for fn in grid_fns)
         mp = load()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        grid_count(key, before)
         occupied = int(tr.state.occ.occ.sum())
         print(f"surfaces: {name} + initialize_states (50 refreshes over "
               f"{tr._get_near_cells().shape[0]} cells) {init_s:.2f} s; mesh "
@@ -1801,6 +1831,18 @@ def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
               f"the frame's kernel time ({card})")
     check(len(mp.mesh.vertices) >= UNHASH_MIN_VERTICES,
           f"unhash mesh of {len(mp.mesh.vertices)} vertices")
+    grid_launches = [sum(v[i] for v in grid_paths.values())
+                     for i in range(3)]
+    print(f"surfaces: grid-table kernel launches on the synthesis and the "
+          f"imports (build_vertex_grid, build_triangle_grid, "
+          f"build_fallback): {grid_paths}, in all {grid_launches}")
+    check(all(n > 0 for n in grid_launches)
+          and all(sum(v) > 0 for v in grid_paths.values()),
+          f"a projector of phase 12 built no table on the card: "
+          f"{grid_paths}")
+    grid_lines = grid_tables_check(
+        dev, card, target, field_io._mesh_from_arrays(
+            tr.field_state.projector), mp.mesh, grid_paths)
     p_u = psnr_of(out["image"], white_gt(ds, npose))
     print(f"surfaces: the unhash frame at the novel pose {p_u:.2f} dB, the "
           f"trained live frame {live_psnr:.2f} dB (not gated: no JAX cell; "
@@ -1864,7 +1906,213 @@ def surfaces_phase(dev, card: str, ds, tr, live_psnr: float) -> dict:
               f"surfaces {name} card vs CPU: PSNR {p_s} dB, max abs {e_s}, "
               f"live mismatch {mism}")
     torch.backends.cuda.matmul.allow_tf32 = True
-    return launches
+    return launches, grid_lines
+
+
+def _grid_frame(points: np.ndarray, res: int):
+    """The grid's float64 origin and cell size over ``points``, as
+    ``spatial.build_grid`` / ``build_triangle_grid`` set them."""
+    lo = points.min(0) - 1e-3
+    return lo, float((points.max(0) + 1e-3 - lo).max() / res)
+
+
+def _event_ms(fn, n: int, flush=None) -> float:
+    """Median device ms of n calls of fn, each between two CUDA events
+    (a warm-up call first); with ``flush`` (FLUSH_BYTES, more than the
+    50 MB L2) written before each call, its inputs come from HBM."""
+    fn()
+    times = []
+    for i in range(n):
+        if flush is not None:
+            flush.fill_(float(i))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def grid_tables_check(dev, card: str, target, template, big,
+                      paths: dict) -> list:
+    """Phase 12's grid-table kernels against their plain versions: the
+    projector's two indexes (``spatial.build_grid`` at M 16,
+    ``build_triangle_grid`` at M 24, at MeshProjector's resolution) of
+    the box target and of the template subdivided to
+    GRID_CHECK_VERTICES, built on the card and on the host (the plain
+    versions: torch binning, cKDTree's query); the cell lists and the
+    fallback lists bit for bit, each build's seconds both ways.
+    Then each kernel's device ms (CUDA events, GRID_TIMED calls) and its
+    plain version's seconds at the template's shapes, and the card's
+    alone at the unhash mesh ``big``.  Returns the three kernels'
+    entries of the kernels line; their launches are phase 12's
+    (``paths``: the counts of each projector build there)."""
+    from nerf_texture_tpu_torch import native
+    from nerf_texture_tpu_torch.geometry import spatial
+    from nerf_texture_tpu_torch.geometry.shape_tools import subdivide_to
+
+    cpu = torch.device("cpu")
+    tmpl = subdivide_to(template, GRID_CHECK_VERTICES)
+    err = {"vertex": 0, "triangle": 0, "fallback": 0}
+
+    def res_of(m):
+        return int(np.clip(round(len(m.vertices) ** (1 / 3) * 2), 8, 64))
+
+    def timed_build(fn, d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(d)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for name, m in (("box target", target), ("template", tmpl)):
+        res = res_of(m)
+        for kind, build in (
+                ("vertex", lambda d: spatial.build_grid(m.vertices, res, 16,
+                                                        device=d)),
+                ("triangle", lambda d: spatial.build_triangle_grid(
+                    m.vertices, m.faces, res, 24, device=d))):
+            a, card_s = timed_build(build, dev)
+            b, plain_s = timed_build(build, cpu)
+            dc = (a.cell_items.cpu() - b.cell_items).abs()
+            df = (a.fallback.cpu() - b.fallback).abs()
+            diff, fb_diff = int((dc > 0).sum()), int((df > 0).sum())
+            err[kind] = max(err[kind], int(dc.max()))
+            err["fallback"] = max(err["fallback"], int(df.max()))
+            print(f"grid tables: {name} ({len(m.vertices)} vertices, "
+                  f"{len(m.faces)} faces, res {res}) {kind} grid: card "
+                  f"{card_s:.3f} s, plain (host) {plain_s:.3f} s; cell "
+                  f"lists {diff} entries apart of {a.cell_items.numel()}; "
+                  f"fallback lists {fb_diff} entries apart of "
+                  f"{a.fallback.numel()} ({card})")
+            check(diff == 0 and torch.equal(a.origin.cpu(), b.origin)
+                  and torch.equal(a.cell_size.cpu(), b.cell_size),
+                  f"{name} {kind} grid: card tables differ from the plain "
+                  f"ones ({diff} entries)")
+            check(fb_diff == 0, f"{name} {kind} grid: card fallback lists "
+                  f"differ from the plain ones ({fb_diff} entries)")
+
+    # -- each kernel's device time, its plain time, its bound ---------------
+    def shapes(m):
+        res = res_of(m)
+        v = torch.as_tensor(m.vertices, device=dev)
+        f = torch.as_tensor(m.faces, device=dev)
+        corners = m.vertices[m.faces]
+        return (res, v, f, corners.mean(1), _grid_frame(m.vertices, res),
+                _grid_frame(corners.reshape(-1, 3), res))
+
+    def bound(kind, res, V, n, kd=None, evals=0):
+        """(bytes, float64 operations) the kernel must move and do: its
+        inputs read once, its table written once; for the fallback the
+        tree's tensors, and 9 operations (3 subtractions, 3
+        multiplications, 3 additions) for each distance this run's walk
+        evaluated."""
+        cells = res ** 3
+        if kind == "vertex":
+            return V * 12 + cells * 16 * 4, 0
+        if kind == "triangle":
+            return V * 12 + n * 12 + cells * 24 * 4, 0
+        tree_bytes = sum(t.numel() * t.element_size()
+                         for t in (kd.points, kd.ids, kd.nodes, kd.splits,
+                                   kd.rects))
+        return tree_bytes + cells * 8 * 4, evals * 9
+
+    timed = {}
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    for label, m, plain in (("template", tmpl, True), ("unhash", big, False)):
+        res, v, f, cent, vframe, tframe = shapes(m)
+        t0 = time.perf_counter()
+        kd = native.kdtree(cent, dev)
+        torch.cuda.synchronize()
+        kd_s = time.perf_counter() - t0
+        kd_cpu = native.kdtree(cent, cpu)
+        print(f"grid tables: kdtree of the {label}'s {len(cent)} centroids "
+              f"(scipy's cKDTree on the host, {len(kd.nodes)} nodes laid "
+              f"out and copied to the card) {kd_s:.3f} s ({card})")
+        calls = {
+            "vertex": (lambda: native.build_vertex_grid(v, res, *vframe, 16),
+                       lambda: native.build_vertex_grid(v.cpu(), res,
+                                                        *vframe, 16),
+                       len(v)),
+            "triangle": (lambda: native.build_triangle_grid(
+                v, f, res, *tframe, 24), lambda: native.build_triangle_grid(
+                v.cpu(), f.cpu(), res, *tframe, 24), len(f)),
+            "fallback": (lambda: native.build_fallback(kd, res, *tframe, 8),
+                         lambda: native.build_fallback(kd_cpu, res, *tframe,
+                                                       8),
+                         len(cent))}
+        for kind, (on_card, on_host, n) in calls.items():
+            ms = _event_ms(on_card, GRID_TIMED, flush)
+            ms_warm = _event_ms(on_card, GRID_TIMED)
+            plain_ms = None
+            if plain:
+                t0 = time.perf_counter()
+                on_host()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            evals = int(native.build_fallback.evaluations) \
+                if kind == "fallback" else 0
+            nbytes, ops = bound(kind, res, len(v), n, kd, evals)
+            bms = max(nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S) * 1e3
+            by = "operations" if ops / F64_OPS_PER_S \
+                > nbytes / HBM_BYTES_PER_S else "bytes"
+            timed[(label, kind)] = {
+                "shape": f"{len(v)} vertices, {len(f)} faces, res {res}",
+                "ms": ms, "ms_warm": ms_warm, "plain_ms": plain_ms,
+                "bound_ms": bms,
+                "bound_by": by, "bytes": nbytes, "f64_ops": ops or None,
+                "bound_share": bms / ms}
+            print(f"grid tables: {kind} kernel at the {label} ({len(v)} "
+                  f"vertices, {len(f)} faces, res {res}): {ms:.3f} ms on "
+                  f"the device, cold ({ms_warm:.3f} warm; median of "
+                  f"{GRID_TIMED}), plain "
+                  f"{'not run' if plain_ms is None else f'{plain_ms:.1f} ms'}"
+                  f", bound {bms:.4f} ms ({by}; {nbytes} bytes"
+                  f"{f', {ops:.3g} f64 operations' if ops else ''}), "
+                  f"{100 * bms / ms:.1f}% of it ({card})")
+        if label == "unhash":
+            big_s = sum(timed[("unhash", k)]["ms"] for k in calls) / 1e3
+            del flush
+            print(f"grid tables: the unhash mesh's two indexes ({len(v)} "
+                  f"vertices) in {big_s:.3f} s of device time on the card "
+                  f"alone; its plain build is not run here ({card})")
+
+    def line(kind, name, replaces, i):
+        t = timed[("template", kind)]
+        return {"name": name, "route": "cuda",
+                "source": "nerf_texture_tpu_torch/csrc/spatial_build.cu",
+                "replaces": replaces,
+                "launches": sum(v[i] for v in paths.values()),
+                "launches_are": "calls of the wrapper: for the binning "
+                                "one entry point pair that queues 4 CUDA "
+                                "launches; for build_fallback one kernel "
+                                "launch a 65,536 cell centres, more for "
+                                "rows that outgrow the node heap",
+                "launches_by_path": {k: v[i] for k, v in paths.items()},
+                "max_abs_err": err[kind], "ms": t["ms"],
+                "ms_warm": t["ms_warm"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "shape": t["shape"], "bound_share": t["bound_share"],
+                "bytes": t["bytes"], "f64_ops": t["f64_ops"],
+                "by_shape": {"unhash " + timed[("unhash", kind)]["shape"]:
+                             timed[("unhash", kind)]},
+                "card": card}
+
+    return [
+        line("vertex", "build_vertex_grid",
+             "native/spatial_build.cpp:22 build_vertex_grid (host C++, no "
+             "TPU kernel), via nerf_texture_tpu/native.py:56 and "
+             "geometry/spatial.py:73", 0),
+        line("triangle", "build_triangle_grid",
+             "native/spatial_build.cpp:47 build_triangle_grid (host C++, no "
+             "TPU kernel), via nerf_texture_tpu/native.py:71 and "
+             "geometry/spatial.py:122", 1),
+        line("fallback", "build_fallback",
+             "scipy cKDTree query of nerf_texture_tpu/geometry/spatial.py:"
+             "104 in _build_fallback :95 (host, no TPU kernel), as "
+             "kd_nearest over the tree native.kdtree lays out", 2)]
 
 
 def narrow_curved(ds, dev_i, ref=None):
@@ -5403,16 +5651,18 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     # one nvcc a source, started together
-    names = ("proxy_select", "maxflow")
+    names = ("proxy_select", "maxflow", "spatial_build")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = dict(zip(names, pool.map(kernels.build, names)))
     for name in names:
         kernels.load_library(name)
     build = builds["proxy_select"]
-    print(f"build: proxy_select.cu {build.path.name} and maxflow.cu "
-          f"{builds['maxflow'].path.name} in {time.perf_counter() - t0:.2f} "
-          f"s (nvcc {build.seconds:.2f} s and "
-          f"{builds['maxflow'].seconds:.2f} s, at once)")
+    print(f"build: proxy_select.cu {build.path.name}, maxflow.cu "
+          f"{builds['maxflow'].path.name} and spatial_build.cu "
+          f"{builds['spatial_build'].path.name} in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc {build.seconds:.2f} s, "
+          f"{builds['maxflow'].seconds:.2f} s and "
+          f"{builds['spatial_build'].seconds:.2f} s, at once)")
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         build.log)
     for line in build.log.splitlines():
@@ -5433,6 +5683,14 @@ def main() -> int:
             print(f"  ptxas (maxflow): {line.strip()}")
     check(all(a == "0" and b == "0" for a, b in mf_spills),
           f"a max-flow kernel spills registers: {mf_spills}")
+    sb_log = builds["spatial_build"].log
+    sb_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", sb_log)
+    for line in sb_log.splitlines():
+        if "registers" in line:
+            print(f"  ptxas (spatial_build): {line.strip()}")
+    check(all(a == "0" and b == "0" for a, b in sb_spills),
+          f"a grid-table kernel spills registers: {sb_spills}")
 
     if only_entry:
         # a shorter run while working on phase 13: the device, the build
@@ -5736,7 +5994,8 @@ def main() -> int:
     lap("11")
 
     # -- 12. synthesis onto another mesh, and its imports --------------------
-    surfaces = surfaces_phase(dev, card, ds, tr, trained["psnr_live"])
+    surfaces, grid_lines = surfaces_phase(dev, card, ds, tr,
+                                          trained["psnr_live"])
     lap("12")
     del tr
     torch.cuda.empty_cache()
@@ -5816,7 +6075,7 @@ def main() -> int:
                      **entry, **relight_topk, "bound2_cli_eval": b2_topk,
                      **par.get("topk", {}), **shell["topk"]},
                     topk_err),
-        {**maxflow_line, "card": card}]}))
+        {**maxflow_line, "card": card}, *grid_lines]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,9 @@ the two training CLIs beside the package (``main_nerf_torch.py``,
 - ``geometry`` -- host mesh utilities (icosphere, UV atlas, TBN), the
                   grid index and kNN, the mesh projector's anchor frames
                   and per-cell anchor table
+- ``native``   -- the grid index's tables: binning and per-cell nearest
+                  items (CUDA kernels of ``csrc/spatial_build.cu`` + plain
+                  twins)
 - ``ops``      -- trunc_exp, frequency and SH encodings, packed hash-grid
                   encode (single and dual table) and its row
                   lookup/scatter autograd pair, the per-corner hash grid,

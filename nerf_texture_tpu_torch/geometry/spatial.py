@@ -2,24 +2,24 @@
 the part the curved serving path runs).
 
 One uniform voxel index over the mesh's items (vertices or triangles),
-built once per mesh on the host (numpy) and shipped to the device as
-padded fixed-width tables; a query gathers the candidate ids of the
-cells around a point plus a per-cell fallback list (the items nearest
-to the cell centre, so a far query still gets real candidates) and
-picks among them with tensor math.
+built once per mesh as padded fixed-width tables on the device; a query
+gathers the candidate ids of the cells around a point plus a per-cell
+fallback list (the items nearest to the cell centre, so a far query
+still gets real candidates) and picks among them with tensor math.
 
 Three queries run over the index: ``knn`` (vertices around a point),
 ``raycast`` (the first triangle hit along a ray, a 3D-DDA voxel walk of
 every ray in lockstep, testing each visited cell's triangles) and
 ``nearest_face`` (the closest triangle to a point among its candidates).
 
-The JAX package builds the cell lists with a C++ helper when g++ is
-present and with numpy otherwise; this port always takes the numpy
-builder.  The two fill a cell's list in different orders, so their
-tables may differ in the padded layout: ``knn`` returns the same
-neighbours from either (it sorts candidates by id), and ``raycast`` /
-``nearest_face`` the same hit, but where two triangles tie (a hit on a
-shared edge) either may be named.
+The tables are built on the device the caller names, by ``native``
+(the port of the JAX package's ``native.py``): on the card by the
+hand-written kernels of ``csrc/spatial_build.cu``, on the CPU by their
+plain versions.  The cell lists equal the JAX package's C++ builder's
+bit for bit (cells found in float32, lowest ids first), and so do the
+fallback lists: cKDTree is built on the host from the same items, and
+the card runs its query step for step (``native.kdtree``,
+``native.build_fallback``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from .triangle import _closest_weights
 
 
@@ -66,75 +67,40 @@ def build_grid(points_per_item: np.ndarray, res: int, max_per_cell: int,
                n_fallback: int = 8, aabb_pad: float = 1e-3,
                device: torch.device | str = "cuda") -> GridIndex:
     """Index items by one representative point each ([N, 3]): every cell
-    lists up to ``max_per_cell`` of its items, lowest ids first."""
+    lists up to ``max_per_cell`` of its items, lowest ids first.  The
+    tables are built on ``device``."""
     pts = np.asarray(points_per_item, np.float64)
     lo = pts.min(0) - aabb_pad
     hi = pts.max(0) + aabb_pad
     cell_size = float((hi - lo).max() / res)
-    coords = np.clip(((pts - lo) / cell_size).astype(np.int64), 0, res - 1)
-    flat = (coords[:, 0] * res + coords[:, 1]) * res + coords[:, 2]
-    cell_items = -np.ones((res ** 3, max_per_cell), np.int32)
-    fill = np.zeros(res ** 3, np.int64)
-    for i in np.argsort(flat, kind="stable"):
-        c = flat[i]
-        if fill[c] < max_per_cell:
-            cell_items[c, fill[c]] = i
-            fill[c] += 1
-    fallback = _build_fallback(pts, lo, cell_size, res, n_fallback)
+    cell_items = native.build_vertex_grid(torch.as_tensor(pts, device=device),
+                                          res, lo, cell_size, max_per_cell)
+    fallback = native.build_fallback(native.kdtree(pts, device), res, lo,
+                                     cell_size, n_fallback)
     return _index(cell_items, fallback, lo, cell_size, res, device)
-
-
-def _build_fallback(pts, lo, cell_size, res, n_fallback):
-    """[res**3, n_fallback] ids of the items nearest to each cell centre
-    (host cKDTree), edge-padded when there are fewer items."""
-    from scipy.spatial import cKDTree
-
-    tree = cKDTree(pts)
-    r = np.arange(res)
-    xx, yy, zz = np.meshgrid(r, r, r, indexing="ij")
-    centers = (np.stack([xx, yy, zz], -1).reshape(-1, 3) + 0.5) * cell_size \
-        + lo
-    k = min(n_fallback, len(pts))
-    # the far cells' queries are slow on a surface's points: every core
-    _, idx = tree.query(centers, k=k, workers=-1)
-    idx = np.asarray(idx, np.int32).reshape(res ** 3, k)
-    if k < n_fallback:
-        idx = np.pad(idx, ((0, 0), (0, n_fallback - k)), mode="edge")
-    return idx
 
 
 def build_triangle_grid(vertices: np.ndarray, faces: np.ndarray, res: int,
                         max_per_cell: int, n_fallback: int = 8,
                         device: torch.device | str = "cuda") -> GridIndex:
     """Bin triangles into every cell their AABB overlaps (conservative);
-    the fallback lists hold the triangles nearest by centroid."""
-    tris = np.asarray(vertices, np.float64)[np.asarray(faces)]
-    lo = tris.reshape(-1, 3).min(0) - 1e-3
-    hi = tris.reshape(-1, 3).max(0) + 1e-3
+    the fallback lists hold the triangles nearest by centroid.  The
+    tables are built on ``device``."""
+    v = np.asarray(vertices, np.float64)
+    f = np.asarray(faces, np.int64)
+    corners = v[f.reshape(-1)]
+    lo = corners.min(0) - 1e-3
+    hi = corners.max(0) + 1e-3
     cell_size = float((hi - lo).max() / res)
-    tmin = np.clip(((tris.min(1) - lo) / cell_size).astype(np.int64),
-                   0, res - 1)
-    tmax = np.clip(((tris.max(1) - lo) / cell_size).astype(np.int64),
-                   0, res - 1)
-    # every (cell, face) pair of the faces' AABB cells, then per cell the
-    # lowest face ids first (a stable sort keeps the faces' order)
-    span = tmax - tmin + 1
-    n = span.prod(1)
-    fid = np.repeat(np.arange(len(tris)), n)
-    loc = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
-    sy, sz = np.repeat(span[:, 1], n), np.repeat(span[:, 2], n)
-    cxyz = np.repeat(tmin, n, axis=0) + np.stack(
-        [loc // (sy * sz), (loc // sz) % sy, loc % sz], -1)
-    cell = (cxyz[:, 0] * res + cxyz[:, 1]) * res + cxyz[:, 2]
-    order = np.argsort(cell, kind="stable")
-    cell, fid = cell[order], fid[order]
-    first = np.flatnonzero(np.r_[True, cell[1:] != cell[:-1]])
-    rank = np.arange(len(cell)) - np.repeat(first, np.diff(np.r_[first,
-                                                                 len(cell)]))
-    keep = rank < max_per_cell
-    cell_items = -np.ones((res ** 3, max_per_cell), np.int32)
-    cell_items[cell[keep], rank[keep]] = fid[keep]
-    fallback = _build_fallback(tris.mean(1), lo, cell_size, res, n_fallback)
+    vt = torch.as_tensor(v, device=device)
+    ft = torch.as_tensor(f, device=device)
+    cell_items = native.build_triangle_grid(vt, ft, res, lo, cell_size,
+                                            max_per_cell)
+    # the centroids on the host, as the JAX package takes them: cKDTree
+    # is built there
+    fallback = native.build_fallback(
+        native.kdtree(corners.reshape(-1, 3, 3).mean(1), device), res, lo,
+        cell_size, n_fallback)
     return _index(cell_items, fallback, lo, cell_size, res, device)
 
 

@@ -318,10 +318,9 @@ def test_profile_trace_writes_a_trace(tmp_path):
 
 
 # what the port leaves out on purpose (ROADMAP Queue 1, item 12): the
-# ctypes binding of the native grid builder, and the TPU dispatch helpers
-NO_COUNTERPART = {"nerf_texture_tpu.native": None,
-                  "nerf_texture_tpu.utils.misc": {
-                      "dput", "machine_scoped_cache_dir"}}
+# TPU dispatch helpers
+NO_COUNTERPART = {"nerf_texture_tpu.utils.misc": {
+    "dput", "machine_scoped_cache_dir"}}
 
 
 def test_every_public_name_has_a_counterpart():

@@ -129,14 +129,19 @@ def test_shape_tools_match_bit_for_bit(name):
 def _loop_triangle_cells(vertices, faces, res, max_per_cell):
     """The triangle grid's cell lists as a loop over the faces and their
     AABB cells (the reference of ``spatial.build_triangle_grid``'s sort):
-    each cell lists its first ``max_per_cell`` faces by id."""
+    each cell lists its first ``max_per_cell`` faces by id.  Cells in
+    float32, as the JAX package's native builder
+    (``native/spatial_build.cpp``) finds them: a vertex on a cell face,
+    as the plane's are, can fall on the other side in float64."""
     tris = np.asarray(vertices, np.float64)[np.asarray(faces)]
     lo = tris.reshape(-1, 3).min(0) - 1e-3
     hi = tris.reshape(-1, 3).max(0) + 1e-3
     cell_size = float((hi - lo).max() / res)
-    tmin = np.clip(((tris.min(1) - lo) / cell_size).astype(np.int64), 0,
+    t32 = tris.astype(np.float32)
+    lo32, cs32 = lo.astype(np.float32), np.float32(cell_size)
+    tmin = np.clip(((t32.min(1) - lo32) / cs32).astype(np.int64), 0,
                    res - 1)
-    tmax = np.clip(((tris.max(1) - lo) / cell_size).astype(np.int64), 0,
+    tmax = np.clip(((t32.max(1) - lo32) / cs32).astype(np.int64), 0,
                    res - 1)
     lists: dict = {}
     for fi in range(len(tris)):
